@@ -1,6 +1,6 @@
 """Global conservation diagnostics (port of
 `ngravs_tpu/diagnostics/energy.py`; reference global.c:22-198,
-run.c:413-433), for collisionless, non-comoving runs.
+run.c:413-433), for collisionless runs, Newtonian or comoving.
 
 `compute_global_quantities` returns per-type kinetic and potential
 energies, momentum, angular momentum, CM and mass, with velocities predicted
@@ -33,22 +33,35 @@ class SysState(NamedTuple):
         return self.energy_kin + self.energy_pot + self.energy_int
 
 
-def predicted_velocities(p, tables, ti_current: int) -> torch.Tensor:
+def predicted_velocities(p, tables, ti_current: int,
+                         pm_window=None) -> torch.Tensor:
     """Velocities advanced from each particle's kick midpoint to ti_current
-    (global.c:52-80, io.c:209-240)."""
+    (global.c:52-80, io.c:209-240); the PM term over the PM window
+    `pm_window = (pm_ti_begstep, pm_ti_endstep)` when given, else over the
+    particle's own window."""
     mid = (p.ti_begstep + p.ti_endstep) // 2
     dt_grav = tables.gravkick_factor(mid, ti_current)
-    return p.vel + (p.accel + p.accel_pm) * dt_grav[:, None]
+    vel = p.vel + p.accel * dt_grav[:, None]
+    if pm_window is None:
+        return vel + p.accel_pm * dt_grav[:, None]
+    pm_beg, pm_end = pm_window
+    it = lambda v: torch.tensor([v], dtype=torch.int32, device=p.device)
+    dt_pm = tables.gravkick_factor(it((pm_beg + pm_end) // 2),
+                                   it(ti_current))[0]
+    return vel + p.accel_pm * dt_pm
 
 
-def compute_global_quantities(p, tables, ti_current: int) -> SysState:
-    vel = predicted_velocities(p, tables, ti_current)
+def compute_global_quantities(p, tables, ti_current: int, pm_window=None,
+                              atime: float = 1.0) -> SysState:
+    """The energy statistics; the potential energy carries a 1/a under
+    comoving integration (global.c:56)."""
+    vel = predicted_velocities(p, tables, ti_current, pm_window)
     m = p.mass
     v2 = torch.sum(vel * vel, dim=-1)
     onehot = torch.nn.functional.one_hot(p.ptype.long(),
                                          N_TYPES).to(m.dtype)   # [N,6]
     ekin_i = 0.5 * m * v2
-    epot_i = 0.5 * m * p.potential
+    epot_i = 0.5 * m * p.potential / atime
     mom = torch.sum(m[:, None] * vel, dim=0)
     ang = torch.sum(m[:, None] * torch.linalg.cross(p.pos, vel), dim=0)
     com = torch.sum(m[:, None] * p.pos, dim=0) / torch.sum(m)

@@ -9,9 +9,13 @@ reference run.c:20-141, begrun.c, init.c).
         energy statistics if due              # global.c
         kick active set, assign new steps     # timestep.c
 
-This slice covers collisionless, non-periodic, non-comoving runs stepped
-one sync point at a time (the general `step()` of the JAX package; it has
-no device-resident segments).  Features of later slices raise
+Collisionless runs stepped one sync point at a time (the general `step()`
+of the JAX package; it has no device-resident segments): open boxes with
+the tree or the direct sweep, and periodic TreePM boxes (PMGRID), Newtonian
+or comoving.  Under PMGRID a PM step forces a full sync (run.c:175-181),
+the long-range force is computed first (accel.c:34-42), and after the
+short-range kick every particle gets the long-range kick over the PM
+midpoint window (timestep.c:350-408).  Features of later slices raise
 NotImplementedError naming their ROADMAP item.
 """
 
@@ -35,8 +39,9 @@ from ..models.wiring import build_wiring
 from ..ops.solver import GravitySolver
 from ..particles import Particles
 from ..units import set_units
-from .kdk import compute_timestep_dt, drift, kick
-from .timeline import ti_to_time, time_to_ti, timebase_interval
+from .kdk import box_wrap, compute_timestep_dt, cosmo_factors, drift, kick, \
+    pm_kick
+from .timeline import pm_window, ti_to_time, time_to_ti, timebase_interval
 
 
 def _check_supported(cfg: SimulationConfig, segment_steps: int):
@@ -44,9 +49,11 @@ def _check_supported(cfg: SimulationConfig, segment_steps: int):
     todo = [
         (segment_steps != 1, "segment_steps > 1 (device-resident segments)",
          "Queue 1 item 10a"),
-        (cfg.comoving_integration, "comoving integration", "Queue 1 item 15"),
-        (cfg.periodic, "periodic boundaries", "Queue 1 item 13"),
-        (cfg.pmgrid, "TreePM (PMGRID)", "Queue 1 item 14"),
+        (cfg.periodic and not cfg.pmgrid,
+         "the periodic pure-tree run (Ewald lattice pass)",
+         "Queue 1 item 13"),
+        (cfg.pmgrid and not cfg.periodic, "non-periodic PM",
+         "Queue 1 item 14"),
         (cfg.force_test > 0, "FORCETEST", "Queue 1 item 12"),
         (cfg.flexsteps or cfg.pseudosymmetric or cfg.make_glass,
          "FLEXSTEPS / PSEUDOSYMMETRIC / MAKEGLASS", "Queue 1 item 17"),
@@ -60,11 +67,15 @@ def _check_supported(cfg: SimulationConfig, segment_steps: int):
 
 
 def build_snapshot_data(cfg, tables, tbi: float, p: Particles,
-                        ti_current: int, time_now: float) -> SnapshotData:
+                        ti_current: int, time_now: float,
+                        pm_window=None) -> SnapshotData:
     """A SnapshotData from integrator state (fill_write_buffer,
     io.c:129-351): velocities predicted to now, per-type constant masses
-    lifted into the header table."""
-    vel = predicted_velocities(p, tables, ti_current)
+    lifted into the header table, comoving->physical output factors."""
+    vel = predicted_velocities(p, tables, ti_current, pm_window)
+    if cfg.comoving_integration:
+        # file vel = internal vel / a^(3/2) (io.c:239-240)
+        vel = vel * time_now ** -1.5
     pos, vel, mass, pid, ptype, pot = (
         t.cpu().numpy() for t in (p.pos, vel, p.mass, p.pid, p.ptype,
                                   p.potential))
@@ -73,6 +84,7 @@ def build_snapshot_data(cfg, tables, tbi: float, p: Particles,
     h.npart = counts
     h.npart_total = counts.astype(np.uint32)
     h.time = time_now
+    h.redshift = 1.0 / time_now - 1 if cfg.comoving_integration else 0.0
     h.box_size = cfg.box_size
     h.omega0, h.omega_lambda, h.hubble_param = \
         cfg.omega0, cfg.omega_lambda, cfg.hubble_param
@@ -86,7 +98,10 @@ def build_snapshot_data(cfg, tables, tbi: float, p: Particles,
                         mass=mass.copy(), ptype=ptype,
                         pot=pot if cfg.output_potential else None)
     if cfg.output_acceleration:
-        data.accel = (p.accel + p.accel_pm).cpu().numpy().astype(np.float32)
+        # physical acceleration fac1 * (tree + PM) (io.c:311-330)
+        fac1 = 1.0 / time_now ** 2 if cfg.comoving_integration else 1.0
+        data.accel = (fac1 * (p.accel + p.accel_pm).cpu().numpy()) \
+            .astype(np.float32)
     if cfg.output_timestep:
         # (Ti_endstep - Ti_begstep) * Timebase_interval (io.c:343-351)
         data.tstp = ((p.ti_endstep - p.ti_begstep).cpu().numpy()
@@ -102,7 +117,12 @@ def load_initial_conditions(cfg, ic_path=None, device="cpu") -> Particles:
         raise NotImplementedError(
             "gas (SPH) is not yet ported to ngravs_tpu_torch "
             "(ROADMAP Queue 1 item 16)")
-    return Particles.create(snap.pos, snap.vel, snap.mass, snap.pid,
+    vel = snap.vel
+    if cfg.comoving_integration:
+        # comoving velocity variable: internal vel = file vel * a^(3/2)
+        # (init.c:95-101)
+        vel = np.asarray(vel) * cfg.time_begin ** 1.5
+    return Particles.create(snap.pos, vel, snap.mass, snap.pid,
                             snap.ptype, cfg.type_to_grav, device=device)
 
 
@@ -129,23 +149,28 @@ def write_snapshot_files(cfg, path, data):
 class Simulation:
     """begrun() + run() equivalent on one device.
 
-    `device`: where the particles live (default: that of `particles`, else
-    CUDA when available, else the CPU).  `log_dir=""` runs headless (no log
-    files); None uses cfg.output_dir, or a scratch directory."""
+    `device`: where the run lives; None means that of `particles`, else the
+    CUDA card, and raises without one: the CPU is used only when asked for
+    (`device="cpu"`).  `log_dir=""` runs headless (no log files); None uses
+    cfg.output_dir, or a scratch directory."""
 
     def __init__(self, cfg: SimulationConfig, particles: Particles | None = None,
                  ic_path: str | None = None, log_dir: str | None = None,
                  segment_steps: int = 1, device=None):
         _check_supported(cfg, segment_steps)
+        if device is None:
+            device = particles.device if particles is not None else "cuda"
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: ngravs_tpu_torch runs on the GPU unless the "
+                'caller asks for the CPU (Simulation(..., device="cpu"), '
+                "python -m ngravs_tpu_torch.run ... --device cpu)")
         self.cfg = cfg
         self.units = set_units(cfg)
         self.wiring = build_wiring(cfg)
         self.tables = make_tables(cfg, self.units)
         self.tbi = timebase_interval(cfg)
-        if device is None:
-            device = particles.device if particles is not None else (
-                "cuda" if torch.cuda.is_available() else "cpu")
-        self.device = torch.device(device)
 
         # softening tables (gravtree.c:468-515): SofteningTable is the
         # Plummer-equivalent; ForceSoftening = 2.8x that
@@ -161,11 +186,16 @@ class Simulation:
                 "gas (SPH) is not yet ported to ngravs_tpu_torch "
                 "(ROADMAP Queue 1 item 16)")
         self.p = particles
+        if cfg.comoving_integration and cfg.periodic and cfg.box_size > 0:
+            self._check_omega()
 
         self.ti_current = 0
-        # the displacement constraint binds only comoving runs
-        # (timestep.c:596-597): here it stays MaxSizeTimestep
+        self.flag_fullstep = True
+        # refined on full steps of comoving runs (timestep.c:596-597)
         self.dt_displacement = cfg.max_size_timestep
+        # PM (long-range) integer-timeline state (timestep.c:350-408)
+        self.pm_ti_begstep = 0
+        self.pm_ti_endstep = 0
         self.num_force_updates = 0
         self.step_count = 0
         self.snapshot_count = 0
@@ -191,8 +221,73 @@ class Simulation:
         self.cpu_timers = {k: 0.0 for k in
                            ["total", "gravity", "drift", "timeline", "snapshot",
                             "potential", "hydro", "domain"]}
+        if cfg.pmgrid:
+            self.cpu_timers["pm"] = 0.0
         self.solver = GravitySolver(cfg, self.wiring, self.force_soft,
-                                    self.units.G, hubble=self.units.hubble)
+                                    self.units.G, hubble=self.units.hubble,
+                                    device=self.device)
+
+    def _check_omega(self):
+        """check_omega (init.c:181-208): the box mass must match Omega0."""
+        cfg, units = self.cfg, self.units
+        mtot = float(torch.sum(self.p.mass.double()))
+        omega = mtot / cfg.box_size ** 3 / (
+            3 * units.hubble * units.hubble / (8 * math.pi * units.G))
+        if abs(omega - cfg.omega0) > 1e-2 * max(cfg.omega0, 1e-10):
+            import warnings
+            warnings.warn(f"IC mass implies Omega0={omega:.4g} but the "
+                          f"parameterfile says {cfg.omega0:.4g} (check_omega, "
+                          "init.c:181-208)")
+
+    def _pm_window_now(self):
+        return ((self.pm_ti_begstep, self.pm_ti_endstep)
+                if self.cfg.pmgrid else None)
+
+    def _cosmo(self):
+        """Comoving prefactors at the current time (None for Newtonian
+        runs, whose factors are all one)."""
+        if not self.cfg.comoving_integration:
+            return None
+        return cosmo_factors(self.cfg, self.units, self.time, self.device)
+
+    def _drift_to(self, ti1: int):
+        self.p = box_wrap(self.cfg, drift(self.p, self.tables,
+                                          self.ti_current, ti1))
+
+    def dt_displacement_constraint(self) -> float:
+        """find_dt_displacement_constraint (timestep.c:587-651): the global
+        RMS-displacement limit per type, from the minimum particle mass vs
+        the component's mean cosmic density, mesh-aware under PMGRID; only
+        comoving runs have it.  f32 arithmetic, as the JAX package does."""
+        cfg, units, p = self.cfg, self.units, self.p
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32,
+                                     device=self.device)
+        dt_min = f32(cfg.max_size_timestep)
+        if not cfg.comoving_integration:
+            return float(dt_min)
+        a = f32(self.time)
+        h2 = (cfg.omega0 / (a * a * a)
+              + (1 - cfg.omega0 - cfg.omega_lambda) / (a * a)
+              + cfg.omega_lambda)
+        hfac = units.hubble * torch.sqrt(h2) * a * a  # a^2 H(a)
+        rho_fac = 3 * units.hubble ** 2 / (8 * math.pi * units.G)
+        for t in range(6):
+            sel = p.ptype == t
+            count = torch.sum(sel)
+            v2 = torch.sum(torch.where(sel[:, None], p.vel ** 2, 0.0))
+            vrms = torch.sqrt(v2 / torch.clamp(count, min=1))
+            min_mass = torch.amin(torch.where(sel, p.mass, math.inf))
+            omega_t = cfg.omega_baryon if t == 0 \
+                else cfg.omega0 - cfg.omega_baryon
+            dmean = (min_mass / max(omega_t * rho_fac, 1e-37)) ** (1.0 / 3)
+            if cfg.pmgrid:
+                dmean = torch.clamp(
+                    dmean, max=cfg.asmth * cfg.box_size / cfg.pmgrid)
+            dt_t = (cfg.max_rms_displacement_fac * hfac * dmean
+                    / torch.clamp(vrms, min=1e-30))
+            dt_min = torch.where(count > 0, torch.minimum(dt_min, dt_t),
+                                 dt_min)
+        return float(dt_min)
 
     # ------------------------------------------------------------------
     def _first_output_time(self):
@@ -280,7 +375,8 @@ class Simulation:
         if cfg.output_potential:
             self.update_full_potential()
         data = build_snapshot_data(cfg, self.tables, float(self.tbi), self.p,
-                                   self.ti_current, self.time)
+                                   self.ti_current, self.time,
+                                   pm_window=self._pm_window_now())
         if path is None:
             out_dir = self.log_dir or cfg.output_dir
             if not out_dir:
@@ -305,14 +401,22 @@ class Simulation:
             self.p.ti_endstep, self.ti_current))
         p2, _, _ = self.solver.compute(p_all, self.ti_current, self.p.n,
                                        want_pot=True)
-        self.p = self.p.replace(potential=p2.potential)
+        pot = p2.potential
+        if self.cfg.pmgrid:
+            # long-range PM potential (potential.c:268-306)
+            pot = pot + self.solver.pm.potential(self.p.pos, self.p.mass,
+                                                 self.p.grav)
+        self.p = self.p.replace(potential=pot)
 
     def energy_statistics(self):
         if self.cfg.compute_potential_energy:
             t0 = _time.time()
             self.update_full_potential()
             self.cpu_timers["potential"] += _time.time() - t0
-        s = compute_global_quantities(self.p, self.tables, self.ti_current)
+        s = compute_global_quantities(
+            self.p, self.tables, self.ti_current,
+            pm_window=self._pm_window_now(),
+            atime=self.time if self.cfg.comoving_integration else 1.0)
         if "energy" in self._logs:
             self._logs["energy"].write(format_energy_line(self.time, s) + "\n")
             self._logs["energy"].flush()
@@ -326,13 +430,16 @@ class Simulation:
 
         # --- find next sync point (run.c:151-236) ---
         _, min_glob = self._active_info()
+        if cfg.pmgrid and min_glob > self.pm_ti_endstep:
+            # a PM step forces a full synchronization (run.c:175-181)
+            min_glob = self.pm_ti_endstep
 
         # snapshots due strictly before the sync point
         while self._next_output <= self.time_at(min_glob) + 1e-12 \
                 and self._next_output < float("inf"):
             ti_out = min(time_to_ti(cfg, self._next_output), C.TIMEBASE)
             if ti_out > self.ti_current:
-                self.p = drift(self.p, self.tables, self.ti_current, ti_out)
+                self._drift_to(ti_out)
                 self.ti_current = ti_out
             self.write_snapshot_now()
             self._advance_output_time()
@@ -340,16 +447,24 @@ class Simulation:
         # drift everyone to the sync point
         t0 = _time.time()
         if min_glob > self.ti_current:
-            self.p = drift(self.p, self.tables, self.ti_current, min_glob)
+            self._drift_to(min_glob)
         self.ti_current = min_glob
         self.cpu_timers["drift"] += _time.time() - t0
 
+        n_act, _ = self._active_info()
+        self.flag_fullstep = n_act == self.p.n
         if "info" in self._logs:
-            n_act, _ = self._active_info()
             self._logs["info"].write(
                 f"Begin Step {self.step_count}, Time: {self.time:.8g}, "
                 f"Active: {n_act}\n")
 
+        # --- forces: long-range PM first when due (accel.c:34-42) ---
+        pm_step = bool(cfg.pmgrid) and self.ti_current == self.pm_ti_endstep
+        if pm_step:
+            t0 = _time.time()
+            self.p = self.p.replace(accel_pm=self.solver.pm_forces(self.p))
+            self._sync()
+            self.cpu_timers["pm"] += _time.time() - t0
         self.compute_forces()
 
         # --- statistics ---
@@ -359,11 +474,18 @@ class Simulation:
 
         # --- kick + new timesteps ---
         t0 = _time.time()
+        # displacement constraint refresh on full steps (timestep.c:63-68);
+        # NOPMSTEPADJUSTMENT pins it to MaxSizeTimestep
+        if cfg.no_pmstep_adjustment:
+            self.dt_displacement = cfg.max_size_timestep
+        elif self.flag_fullstep and cfg.comoving_integration:
+            self.dt_displacement = self.dt_displacement_constraint()
+        cf = self._cosmo()
         if cfg.min_size_timestep > 0 and not cfg.nostop_when_below_mintimestep:
             # stop when a particle wants dt below MinSizeTimestep
             # (timestep.c:531-556), unless NoStopBelowMinTimestep
             dtp = compute_timestep_dt(cfg, self.p, self.dt_displacement,
-                                      self._soft_t)
+                                      self._soft_t, cf)
             act = self.p.ti_endstep == self.ti_current
             mn = float(torch.amin(torch.where(act, dtp, math.inf)))
             if mn < cfg.min_size_timestep:
@@ -372,7 +494,16 @@ class Simulation:
                     f"{cfg.min_size_timestep:g} (timestep.c:531-556); set "
                     "NoStopBelowMinTimestep 1 to clamp instead")
         self.p = kick(cfg, self.p, self.tables, self.ti_current,
-                      self.dt_displacement, self._soft_t)
+                      self.dt_displacement, self._soft_t, cf)
+        if pm_step:
+            # the long-range kick over the PM midpoint window
+            # (timestep.c:350-408); the step in ticks from the
+            # displacement constraint as the host computes it
+            tstart, tend, self.pm_ti_begstep, self.pm_ti_endstep = \
+                pm_window(self.ti_current, self.pm_ti_begstep,
+                          self.pm_ti_endstep,
+                          int(self.dt_displacement / self.tbi))
+            self.p = pm_kick(self.p, self.tables, tstart, tend)
         self._sync()
         self.cpu_timers["timeline"] += _time.time() - t0
 

@@ -8,8 +8,9 @@ Startup validation reproduces `init_grav_maps` (ngravs_core.c:201-424):
 Newton's-3rd-law symmetry of each (i,j)/(j,i) pair probed at a test point,
 unless `l3violation` is set.
 
-Only the all-Newton presets are ported; the other presets of the JAX
-package need multi-law dispatch in the pair kernel (ROADMAP Queue 2, K1b).
+Every preset of the JAX package is here.  A wiring whose laws the pair
+kernel has no kind for (a user law from `register_wiring`) still builds,
+runs on the CPU through the plain twin, and is refused on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -18,10 +19,8 @@ import numpy as np
 import torch
 
 from ..config import SimulationConfig
+from ..constants import BAM_EPSILON, YUKAWA_IMASS
 from . import laws as L
-
-# presets of the JAX package that wait for K1b
-_NOT_PORTED = ("bam", "yukawa", "newton_yukawa", "coloyuk", "three_species")
 
 
 class GravityWiring:
@@ -94,9 +93,71 @@ def wire_newton(cfg: SimulationConfig) -> GravityWiring:
     return GravityWiring([[newton] * n for _ in range(n)])
 
 
+def wire_bam(cfg: SimulationConfig) -> GravityWiring:
+    """Newton/BAM 2x2 (NGRAVS_ACCUMULATOR_TESTING, ngravs.c:163-210)."""
+    if cfg.n_gravs != 2:
+        raise ValueError("bam wiring requires n_gravs=2")
+    return GravityWiring(
+        [[L.Newtonian(), L.SourceBamBaryon(BAM_EPSILON)],
+         [L.SourceBaryonBam(BAM_EPSILON), L.BamBam(BAM_EPSILON)]],
+        accumulator=cfg.ngravs_accumulator)
+
+
+def _yukawa_args(cfg: SimulationConfig):
+    box = cfg.box_size if cfg.box_size > 0 else 1.0
+    return YUKAWA_IMASS, box, cfg.pmgrid, cfg.asmth
+
+
+def wire_yukawa(cfg: SimulationConfig) -> GravityWiring:
+    """Off-diagonal Yukawa, diagonal none (NGRAVS_YUKAWA_FORCETEST,
+    ngravs.c:213-282)."""
+    n = cfg.n_gravs
+    yuk = L.Yukawa(*_yukawa_args(cfg))
+    none = L.NoneLaw()
+    return GravityWiring([[none if i == j else yuk for j in range(n)]
+                          for i in range(n)])
+
+
+def wire_newton_yukawa(cfg: SimulationConfig) -> GravityWiring:
+    """Diagonal Newton, off-diagonal Yukawa — the BASELINE config-2 mix."""
+    n = cfg.n_gravs
+    yuk = L.Yukawa(*_yukawa_args(cfg))
+    newton = L.Newtonian()
+    return GravityWiring([[newton if i == j else yuk for j in range(n)]
+                          for i in range(n)])
+
+
+def wire_coloyuk(cfg: SimulationConfig) -> GravityWiring:
+    """All-pairs Coulomb+Yukawa (NGRAVS_COMBINED_TESTING_UNIFORM,
+    ngravs.c:284-321)."""
+    n = cfg.n_gravs
+    cy = L.ColoYuk(*_yukawa_args(cfg))
+    return GravityWiring([[cy] * n for _ in range(n)])
+
+
+def wire_three_species(cfg: SimulationConfig) -> GravityWiring:
+    """Three distinct diagonal laws (Newton / Yukawa / Coulomb+Yukawa) with
+    symmetric Yukawa cross-interactions — the BASELINE config-5 N_GRAVS>=3
+    interaction matrix."""
+    if cfg.n_gravs < 3:
+        raise ValueError("three_species wiring requires n_gravs >= 3")
+    n = cfg.n_gravs
+    newton = L.Newtonian()
+    yuk = L.Yukawa(*_yukawa_args(cfg))
+    cy = L.ColoYuk(*_yukawa_args(cfg))
+    diag = [newton, yuk, cy] + [newton] * (n - 3)
+    return GravityWiring(
+        [[diag[i] if i == j else yuk for j in range(n)] for i in range(n)])
+
+
 WIRINGS = {
     "newton": wire_newton,
     "stock": wire_newton,
+    "bam": wire_bam,
+    "yukawa": wire_yukawa,
+    "newton_yukawa": wire_newton_yukawa,
+    "coloyuk": wire_coloyuk,
+    "three_species": wire_three_species,
 }
 
 
@@ -109,11 +170,6 @@ def register_wiring(name: str, fn):
 def build_wiring(cfg: SimulationConfig) -> GravityWiring:
     """init_grav_maps equivalent (ngravs_core.c:201-424): build + validate."""
     if cfg.wiring not in WIRINGS:
-        if cfg.wiring in _NOT_PORTED:
-            raise NotImplementedError(
-                f"wiring {cfg.wiring!r} is not yet ported to "
-                "ngravs_tpu_torch: it needs multi-law dispatch "
-                "(ROADMAP Queue 2, K1b)")
         raise ValueError(f"unknown wiring {cfg.wiring!r}; known: {sorted(WIRINGS)}")
     w = WIRINGS[cfg.wiring](cfg)
     if w.n_gravs != cfg.n_gravs:

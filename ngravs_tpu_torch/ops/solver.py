@@ -1,10 +1,13 @@
-"""Gravity solver front-end: octree or direct summation.
+"""Gravity solver front-end: octree, TreePM or direct summation.
 
-Port of the non-periodic path of `ngravs_tpu/ops/solver.py`: the reference's
-`gravity_tree()` (gravtree.c:27) as a host-side orchestrator.  Build (or
-refresh) the tree from all particles, walk it for the active targets,
-scatter accelerations back times G (gravtree.c:337-341) with the
-cosmological corrections; or take the exact direct sweep for small N.
+Port of `ngravs_tpu/ops/solver.py`: the reference's `gravity_tree()`
+(gravtree.c:27) as a host-side orchestrator.  Build (or refresh) the tree
+from all particles, walk it for the active targets, scatter accelerations
+back times G (gravtree.c:337-341) with the cosmological corrections; or
+take the exact direct sweep for small N.  Under PMGRID the walk is the
+TreePM short-range walk and `pm_forces` gives the long-range part
+(long_range_force, longrange.c:56); TreePM never takes the direct sweep,
+which would count the long range twice.
 
 Cap management: the walk's per-block caps are fixed sizes; the solver grows
 a cap the walk reports overflowing, to measured demand, and retries — the
@@ -31,36 +34,65 @@ from .walk import (frontier_slot_caps, make_fused_walk, measure_octet_demand,
 
 
 class CosmoCorrections:
-    """Static correction factors (gravtree.c:302-316,344-358;
-    potential.c:310-337) for a non-periodic, non-comoving run: the vacuum
-    energy terms, which vanish with H = 0 or OmegaLambda = 0."""
+    """Static cosmological correction factors (gravtree.c:302-316,344-358;
+    potential.c:251-258,310-337).  H = 0 (Newtonian units) disables all."""
 
-    def __init__(self, fac_acc_lam: float, fac_pot_r2: float):
+    def __init__(self, fac_acc_com, fac_acc_lam, fac_pot_r2,
+                 madelung_by_grav):
+        self.fac_acc_com = fac_acc_com
         self.fac_acc_lam = fac_acc_lam
         self.fac_pot_r2 = fac_pot_r2
+        self.madelung_by_grav = madelung_by_grav
 
 
-def cosmo_corrections(cfg, hubble: float) -> CosmoCorrections:
-    if cfg.comoving_integration or cfg.periodic or cfg.pmgrid:
-        raise NotImplementedError(
-            "comoving and periodic force corrections are not yet ported to "
-            "ngravs_tpu_torch (ROADMAP Queue 1 items 13-15)")
+def cosmo_corrections(cfg, G: float, hubble: float,
+                      lattice_tables=None) -> CosmoCorrections:
     H2 = hubble * hubble
+    open_box = not cfg.periodic and not cfg.pmgrid
+    # comoving open box: acc += 0.5 H^2 Omega0 pos (pre-G in the
+    # reference, so it feeds OldAcc; post-G here, same value)
+    fac_acc_com = (0.5 * H2 * cfg.omega0
+                   if open_box and cfg.comoving_integration else 0.0)
     # Newtonian coordinates with vacuum energy: acc += OmegaLambda H^2 pos
-    # (added after OldAcc in the reference), and the potential's
-    # -0.5 OmegaLambda H^2 r^2 term
-    return CosmoCorrections(cfg.omega_lambda * H2,
-                            -0.5 * cfg.omega_lambda * H2)
+    # (added after OldAcc in the reference)
+    fac_acc_lam = (cfg.omega_lambda * H2
+                   if open_box and not cfg.comoving_integration else 0.0)
+    # potential r^2 terms (potential.c:310-337): comoving open box
+    # -0.5 Omega0 H^2 r^2; Newtonian -0.5 OmegaLambda H^2 r^2 (any box)
+    if cfg.comoving_integration:
+        fac_pot_r2 = -0.5 * cfg.omega0 * H2 if not cfg.periodic else 0.0
+    else:
+        fac_pot_r2 = -0.5 * cfg.omega_lambda * H2
+    # comoving periodic with lattice tables: the per-gravity Madelung
+    # ("LatticeZero") potential term -G psi0[g,g] m^(2/3)
+    # (3 Omega0 H^2 / (8 pi G))^(1/3) (potential.c:251-258); the table
+    # origin holds the Madelung constant rescaled by 1/L
+    madelung = None
+    if (cfg.comoving_integration and cfg.periodic
+            and lattice_tables is not None and H2 > 0):
+        ng = cfg.n_gravs
+        t = lattice_tables.detach().cpu().numpy()
+        psi0 = t.reshape(ng, ng, *t.shape[1:])[
+            np.arange(ng), np.arange(ng), 0, 0, 0, 3] * cfg.box_size
+        rho_fac = (cfg.omega0 * 3 * H2 / (8 * math.pi * G)) ** (1.0 / 3)
+        madelung = torch.as_tensor(G * psi0 * rho_fac, dtype=torch.float32)
+    return CosmoCorrections(fac_acc_com, fac_acc_lam, fac_pot_r2, madelung)
 
 
-def apply_cosmo_corrections(c: CosmoCorrections, pos, acc, pot):
+def apply_cosmo_corrections(c: CosmoCorrections, pos, mass, grav, acc, pot):
     """Corrections on G-multiplied (acc, pot) rows.  Returns (acc,
-    old_acc_magnitude, pot): the Lambda term is not inside OldAcc."""
+    old_acc_magnitude, pot): the comoving Omega0 term is inside OldAcc, the
+    Lambda term is not (gravtree.c:304-315, 344-358)."""
+    if c.fac_acc_com:
+        acc = acc + c.fac_acc_com * pos
     amag = torch.sqrt(torch.sum(acc * acc, dim=-1))
     if c.fac_acc_lam:
         acc = acc + c.fac_acc_lam * pos
     if c.fac_pot_r2:
         pot = pot + c.fac_pot_r2 * torch.sum(pos * pos, dim=-1)
+    if c.madelung_by_grav is not None:
+        pot = pot - c.madelung_by_grav.to(pot.device)[grav.long()] \
+            * mass ** (2.0 / 3)
     return acc, amag, pot
 
 
@@ -72,11 +104,8 @@ class GravitySolver:
     """Gravity for one simulation configuration, on the particles' device."""
 
     def __init__(self, cfg: SimulationConfig, wiring: GravityWiring,
-                 fsoft_by_type, g_const: float, hubble: float = 0.0):
-        if cfg.pmgrid or cfg.periodic:
-            raise NotImplementedError(
-                "periodic and TreePM gravity are not yet ported to "
-                "ngravs_tpu_torch (ROADMAP Queue 1 items 13-14)")
+                 fsoft_by_type, g_const: float, hubble: float = 0.0,
+                 device="cpu"):
         if cfg.adaptive_gravsoft_forgas:
             raise NotImplementedError(
                 "ADAPTIVE_GRAVSOFT_FORGAS needs SPH, not yet ported to "
@@ -105,7 +134,31 @@ class GravitySolver:
         self.leaf_factor = 2.0  # leaf-chunk table rows per particle
         # measured per-level octet caps (set from the first built tree)
         self.octet_caps = None
-        self._corr = cosmo_corrections(cfg, hubble)
+        self.box = cfg.box_size if cfg.periodic else 0.0
+        # periodic pure-tree runs need the lattice (Ewald) tables
+        # (begrun.c:47-49); the port's walk has no lattice pass yet, so
+        # such runs are refused by the walk (ROADMAP Queue 1 item 13)
+        self.lattice_tables = None
+        # TreePM: the PM solver and the short-range walk's split scale
+        # and cut (long_range_init, longrange.c:20); the walk takes the
+        # laws' closed-form truncation
+        self.pm = None
+        self.treepm = None
+        if cfg.pmgrid:
+            from .pm import PMSolver
+            if cfg.ngravs_treepm_xition_check:
+                raise NotImplementedError(
+                    "the TreePM transition-table dump needs the tabulated "
+                    "transition, not yet ported to ngravs_tpu_torch "
+                    "(ROADMAP Queue 1 item 14)")
+            self.pm = PMSolver(wiring, cfg.pmgrid, cfg.box_size, cfg.n_gravs,
+                               g_const, asmth_cells=cfg.asmth,
+                               gradient=cfg.pm_gradient,
+                               interlace=cfg.pm_interlace, device=device)
+            self.pm.rcut = cfg.rcut * self.pm.asmth
+            self.treepm = dict(asmth=self.pm.asmth, rcut=self.pm.rcut)
+        self._corr = cosmo_corrections(cfg, self.G, hubble,
+                                       self.lattice_tables)
 
     # ------------------------------------------------------------------
     def clamp_caps(self, n: int):
@@ -158,8 +211,10 @@ class GravitySolver:
             batch_blocks=cfg.walk_batch_blocks,
             chunk_cap=self.fcaps["chunk"], frontier_cap=self.fcaps["frontier"],
             theta=cfg.err_tol_theta, opening="relative",
-            leaf_factor=self.leaf_factor, want_pot=want_pot,
-            octet_caps=self.octet_caps, pair_eval=self.pair_eval)
+            box_size=self.box, leaf_factor=self.leaf_factor,
+            want_pot=want_pot, lattice_tables=self.lattice_tables,
+            treepm=self.treepm, octet_caps=self.octet_caps,
+            pair_eval=self.pair_eval)
 
     def _measure_octets(self, tree, n: int) -> None:
         """Octet caps from the built tree's per-level occupancy, with a 1.5x
@@ -176,7 +231,8 @@ class GravitySolver:
     def _scatter(self, p, orig, acc, pot, want_pot: bool, ninteract=None):
         """Write G-scaled, corrected target rows back (original order)."""
         acc, amag, pot = apply_cosmo_corrections(
-            self._corr, p.pos[orig], acc * self.G, pot * self.G)
+            self._corr, p.pos[orig], p.mass[orig], p.grav[orig],
+            acc * self.G, pot * self.G)
         accel = p.accel.clone()
         accel[orig] = acc
         old_acc = p.old_acc.clone()
@@ -194,13 +250,21 @@ class GravitySolver:
 
     def uses_direct(self, n: int) -> bool:
         """Whether compute() takes the exact O(N^2) path for n particles
-        (an explicitly requested tree solver is honored at any n)."""
+        (an explicitly requested tree solver is honored at any n; TreePM
+        never takes it)."""
+        if self.treepm is not None:
+            return False
         if self.cfg.solver == "direct":
             return True
         if self.cfg.solver == "tree":
             return False
         return (n <= 2 * self.cfg.tree_group_size
                 or n <= self.cfg.direct_crossover)
+
+    def pm_forces(self, p):
+        """Long-range PM accelerations of ALL particles (long_range_force,
+        longrange.c:56 -> pmforce_periodic)."""
+        return self.pm.forces(p.pos, p.mass, p.grav)
 
     # ------------------------------------------------------------------
     def compute(self, p, ti_current: int, n_active: int,
@@ -216,9 +280,9 @@ class GravitySolver:
             tgt = torch.nonzero(p.ti_endstep == ti_current).squeeze(1)
             acc, pot = direct_forces(
                 self.wiring, p.pos, p.mass, p.grav, fsoft,
-                tgt_idx=tgt.to(torch.int32),
+                tgt_idx=tgt.to(torch.int32), box=self.box,
                 chunk=min(1024, _bucket(max(tgt.shape[0], 1))),
-                want_pot=True)
+                want_pot=True, lattice_tables=self.lattice_tables)
             p = self._scatter(p, tgt, acc, pot, want_pot=True)
             return p, tgt.shape[0] * p.n, None
 
@@ -247,7 +311,7 @@ class GravitySolver:
                 break
             tree = build_tree(p.pos, p.mass, p.grav, fsoft, aold, hsml,
                               depth=self.depth, n_gravs=self.cfg.n_gravs,
-                              bucket=bucket,
+                              bucket=bucket, box_size=self.box,
                               group_size=self.cfg.walk_group_size)
             # largest bucket-leaf occupancy: > bucket means the depth limit
             # truncates leaf evaluation (fat leaf) -> deepen

@@ -155,20 +155,21 @@ def build_tree(pos, mass, grav, fsoft, aold, hsml=None,
                ngrp_cap: int | None = None, vel=None) -> Octree:
     """Construct the octree (force_treebuild, forcetree.c:61-763).
 
-    Non-periodic: the root is the particle bounding cube
-    (domain_findExtent, domain.c:882)."""
+    Periodic runs pass box_size > 0: the root cell is the box itself
+    (positions already wrapped).  Otherwise the root is the particle
+    bounding cube (domain_findExtent, domain.c:882)."""
     if depth > MAX_DEPTH:
         raise ValueError(f"depth {depth} > {MAX_DEPTH}")
-    if box_size > 0:
-        raise NotImplementedError(
-            "periodic trees are not yet ported to ngravs_tpu_torch "
-            "(ROADMAP Queue 1 item 13)")
     dev = pos.device
     n = pos.shape[0]
-    lo = torch.amin(pos, dim=0)
-    hi = torch.amax(pos, dim=0)
-    root_len = torch.amax(hi - lo) * 1.0001 + 1e-30
-    corner = (lo + hi) / 2 - root_len / 2
+    if box_size > 0:
+        corner = torch.zeros(3, dtype=pos.dtype, device=dev)
+        root_len = torch.tensor(box_size, dtype=pos.dtype, device=dev)
+    else:
+        lo = torch.amin(pos, dim=0)
+        hi = torch.amax(pos, dim=0)
+        root_len = torch.amax(hi - lo) * 1.0001 + 1e-30
+        corner = (lo + hi) / 2 - root_len / 2
     inv_len = 1.0 / root_len
 
     if hsml is None:

@@ -1,9 +1,12 @@
-"""Fused Barnes-Hut walk: octet traversal + K1a pair evaluation.
+"""Fused Barnes-Hut walk: octet traversal + K1 pair evaluation.
 
-Port of `ngravs_tpu/ops/walk.py` (non-periodic, no TreePM, no lattice pass,
-single law).  The production force path: the reference's hot loop
-`force_treeevaluate` (forcetree.c:1244) as one pass over batches of target
-blocks.
+Port of `ngravs_tpu/ops/walk.py`: any wiring (with the accumulator count
+rows), open or periodic boxes, and the TreePM short-range walk with the
+closed-form truncation.  The production force path: the reference's hot
+loop `force_treeevaluate` (forcetree.c:1244) as one pass over batches of
+target blocks.  Not yet ported, and refused: the periodic pure-tree walk's
+lattice pass (ROADMAP Queue 1 item 13) and the tabulated TreePM transition
+of laws with no closed form (item 14).
 
  1. **Octet traversal** — tree nodes are laid out in 8-aligned SIBLING
     OCTETS (all 8 child slots of a parent; `build_octet_layout`).  The
@@ -17,7 +20,9 @@ blocks.
     particle chunks) become runs of chunks of one packed source table;
     each block's runs expand into a chunk list, and one gather fills the
     packed [B, 8, S] source buffer (masked rows get gid -1).
- 3. **Pair evaluation** — the buffer goes to `pairwise_eval` (K1a).
+ 3. **Pair evaluation** — the buffer goes to `pairwise_eval` (K1).
+    Under TreePM whole subtrees beyond Rcut are discarded during the
+    traversal (forcetree.c:1828-1862).
 
 The table layouts, caps and overflow contract (`FusedWalkResult`) are the
 JAX package's: a tree and its tables packed by either package are
@@ -33,7 +38,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..models.laws import Newtonian
 from ..models.wiring import GravityWiring
 from .pairwise import IGID, pairwise_eval
 from .tree import Octree, level_caps
@@ -157,17 +161,18 @@ def build_octet_layout(tree: Octree, n: int, depth: int, bucket: int,
     return slot8, child_oct, ovf
 
 
-def walk_table_width(n_gravs: int) -> int:
+def walk_table_width(n_gravs: int, accumulator: bool = False) -> int:
     """Columns of the octet walk table, padded to a multiple of 8."""
-    return _rup(8 + 4 * n_gravs, 8)
+    return _rup(8 + 4 * n_gravs + (n_gravs if accumulator else 0), 8)
 
 
 def pack_walk_table8(tree: Octree, slot8, child_oct, n_gravs: int,
-                     n_oct: int):
+                     n_oct: int, accumulator: bool = False):
     """[n_oct, 8*W] octet walk table: center xyz, flags, child_oct, chunk0,
-    nchunk, maxsoft, then per-gravity (cm xyz, mass).  flags: bit0
-    terminal, bits 1..NG per-gravity mass>0, bits 8.. node level.  Dead
-    slots are all-zero.  Also the [n_oct, 8*NG*3] CM velocity table."""
+    nchunk, maxsoft, then per-gravity (cm xyz, mass) [, per-gravity
+    count].  flags: bit0 terminal, bits 1..NG per-gravity mass>0, bits 8..
+    node level.  Dead slots are all-zero.  Also the [n_oct, 8*NG*3] CM
+    velocity table."""
     flags = tree.node_terminal.to(torch.int32)
     for g in range(n_gravs):
         flags = flags | ((tree.node_mass[:, g] > 0).to(torch.int32) << (1 + g))
@@ -179,7 +184,10 @@ def pack_walk_table8(tree: Octree, slot8, child_oct, n_gravs: int,
     for g in range(n_gravs):
         cols += [tree.node_cm[:, g, 0], tree.node_cm[:, g, 1],
                  tree.node_cm[:, g, 2], tree.node_mass[:, g]]
-    w = walk_table_width(n_gravs)
+    if accumulator:
+        cols += [torch.clamp(tree.node_count[:, g], min=1.0)
+                 for g in range(n_gravs)]
+    w = walk_table_width(n_gravs, accumulator)
     cols += [torch.zeros_like(tree.node_maxsoft)] * (w - len(cols))
     m = tree.node_maxsoft.shape[0]
     # dead nodes write the junk row n_oct*8, which is cut off
@@ -207,7 +215,7 @@ def source_table_layout(n: int, n_oct: int, n_gravs: int,
 
 
 def pack_source_table(tree: Octree, slot8, n_gravs: int, n_oct: int,
-                      leaf_factor: float):
+                      leaf_factor: float, accumulator: bool = False):
     """[R/8, 64] packed sources, 8 rows of x, y, z, mass, soft, count, grav,
     gid per chunk (grav/gid as int32 bit patterns).  Leaf particles sit in
     aligned 8-row chunks; node monopoles gravity-major per octet.  Also the
@@ -246,9 +254,12 @@ def pack_source_table(tree: Octree, slot8, n_gravs: int, n_oct: int,
     mg = torch.where(dead, 0.0, tree.node_mass[nodec, g_q])
     ok = ~dead & (mg > 0)
     cm = tree.node_cm[nodec, g_q]
+    # the accumulator's count row: members per (node, gravity), >= 1
+    cg = torch.clamp(torch.where(dead, 1.0, tree.node_count[nodec, g_q]),
+                     min=1.0) if accumulator else torch.ones_like(mg)
     mono = torch.stack(
         [cm[:, 0], cm[:, 1], cm[:, 2], mg, tree.node_maxsoft[nodec],
-         torch.ones_like(mg), _bits(g_q),
+         cg, _bits(g_q),
          _bits(torch.where(ok, -2, -1))], dim=1)
     mvel = torch.where(dead[:, None], 0.0, tree.node_vel[nodec, g_q])
 
@@ -261,7 +272,8 @@ def pack_source_table(tree: Octree, slot8, n_gravs: int, n_oct: int,
 
 
 def pack_walk_tables(tree: Octree, n: int, depth: int, bucket: int,
-                     n_gravs: int, leaf_factor: float, layout=None,
+                     n_gravs: int, leaf_factor: float,
+                     accumulator: bool = False, layout=None,
                      octet_caps=None) -> WalkTables:
     """Derive the octet layout (unless `layout` carries one from the same
     tree structure) and pack both tables."""
@@ -269,8 +281,10 @@ def pack_walk_tables(tree: Octree, n: int, depth: int, bucket: int,
     if layout is None:
         layout = build_octet_layout(tree, n, depth, bucket, octet_caps)
     slot8, child_oct, oovf = layout
-    gsrc, gvel = pack_source_table(tree, slot8, n_gravs, n_oct, leaf_factor)
-    wtab8, wvel8 = pack_walk_table8(tree, slot8, child_oct, n_gravs, n_oct)
+    gsrc, gvel = pack_source_table(tree, slot8, n_gravs, n_oct, leaf_factor,
+                                   accumulator)
+    wtab8, wvel8 = pack_walk_table8(tree, slot8, child_oct, n_gravs, n_oct,
+                                    accumulator)
     return WalkTables(slot8=slot8, child_oct=child_oct, layout_ovf=oovf,
                       wtab8=wtab8, wvel8=wvel8, gsrc=gsrc, gvel=gvel)
 
@@ -300,24 +314,39 @@ def make_fused_walk(wiring: GravityWiring, n_gravs: int, *,
                     frontier_cap=2048,
                     theta: float = 0.5,
                     opening: str = "relative",
+                    box_size: float = 0.0,
                     leaf_factor: float = 2.0,
                     want_pot: bool = True,
+                    lattice_tables=None,
+                    treepm: dict | None = None,
                     octet_caps=None,
                     pair_eval=pairwise_eval):
     """Build the fused walk.  Returns fn(tree, tgt_sorted, opening_override,
     tables) -> FusedWalkResult.  `chunk_cap`: per-block unified 8-row source
     chunks; `frontier_cap`: per-level frontier slots per block (int or
-    tuple).  `pair_eval` is the pair evaluation (K1a by default; a test or
-    a benchmark may pass the plain twin).
+    tuple).  `box_size` > 0 walks a periodic box (minimum image);
+    `treepm`: dict(asmth, rcut) makes it the TreePM short-range walk.
+    `pair_eval` is the pair evaluation (K1 by default; a test or a
+    benchmark may pass the plain twin).
 
     One host sync per call: the number of active target blocks."""
-    groups = wiring.unique_laws()
-    if len(groups) != 1 or type(groups[0][0]) is not Newtonian \
-            or wiring.accumulator:
+    if lattice_tables is not None:
         raise NotImplementedError(
-            "the fused walk of ngravs_tpu_torch evaluates one Newtonian law "
-            "without the accumulator; multi-law wirings need K1b (ROADMAP "
-            "Queue 2)")
+            "the periodic pure-tree walk's lattice (Ewald) pass is not yet "
+            "ported to ngravs_tpu_torch (ROADMAP Queue 1 item 13)")
+    groups = wiring.unique_laws()
+    if treepm is not None and not all(
+            law.kernel_shortrange() is not None for law, _ in groups):
+        raise NotImplementedError(
+            "the tabulated TreePM transition for laws with no closed-form "
+            "truncation is not yet ported to ngravs_tpu_torch (ROADMAP "
+            "Queue 1 item 14)")
+    periodic = box_size > 0
+    rcut = float(treepm["rcut"]) if treepm is not None else 0.0
+    pair_kw = dict(wiring=wiring, box_size=float(box_size),
+                   accumulator=wiring.accumulator,
+                   treepm_asmth=(float(treepm["asmth"])
+                                 if treepm is not None else 0.0))
     G = group_size
     NG = n_gravs
     B = batch_blocks
@@ -327,13 +356,20 @@ def make_fused_walk(wiring: GravityWiring, n_gravs: int, *,
     if G % S or G % 8:
         raise ValueError(f"group size {G} must split into {S} subgroups "
                          "and 8-row chunks")
-    W = walk_table_width(NG)
+    W = walk_table_width(NG, wiring.accumulator)
     fcaps_l = normalize_frontier_caps(frontier_cap, depth)
     foct_l = tuple(max(1, (c + 7) // 8) for c in fcaps_l)
     big = 1e30
 
     def _gap(point, lo_b, hi_b):
-        return torch.maximum(lo_b - point, point - hi_b)
+        g = torch.maximum(lo_b - point, point - hi_b)
+        if periodic:
+            gp = torch.maximum(lo_b - point - box_size,
+                               point + box_size - hi_b)
+            gm = torch.maximum(lo_b - point + box_size,
+                               point - box_size - hi_b)
+            g = torch.minimum(g, torch.minimum(gp, gm))
+        return g
 
     def _walk_batch(tree, wtab8, gsrc8, layout, tgt, rel, n_static):
         """One batch of B blocks: traversal -> chunk lists -> pair eval.
@@ -431,13 +467,21 @@ def make_fused_walk(wiring: GravityWiring, n_gravs: int, *,
                                > r2min * r2min * aold_sub[:, None, :])
             else:
                 must_open_s = cell_len * cell_len > r2min * (theta * theta)
-            # the target subgroup intersects the node: always open
+            # the target subgroup intersects the node: always open; under
+            # TreePM a node beyond Rcut of every subgroup is discarded with
+            # its whole subtree
             inter = torch.ones((B, F, S), dtype=torch.bool, device=dev)
+            byd = torch.zeros((B, F, S), dtype=torch.bool, device=dev) \
+                if rcut > 0 else None
             for ax in range(3):
                 gx = _gap(center[:, :, None, ax], lo_b[:, None, :, ax],
                           hi_b[:, None, :, ax])
                 inter = inter & (gx < 0.6 * cell_len)
+                if rcut > 0:
+                    byd = byd | (gx - 0.5 * cell_len > rcut)
             must_open_s = must_open_s | inter
+            if rcut > 0:
+                valid = valid & ~torch.all(byd, dim=-1)
             must_open = torch.any(must_open_s & sub_ok[:, None, :], dim=-1)
             accept = valid & ~must_open
             rest = valid & must_open
@@ -528,7 +572,7 @@ def make_fused_walk(wiring: GravityWiring, n_gravs: int, *,
                        mass=flat(tgt["mass"]), grav=flat(tgt["grav"]),
                        fsoft=flat(tgt["fsoft"]), gid=flat(tgid))
         n_src = (torch.clamp(n_uch, max=CL) * 8).to(torch.int32).reshape(B, 1)
-        a3, pp, nv = pair_eval(targets, ubuf, n_src, want_pot)
+        a3, pp, nv = pair_eval(targets, ubuf, n_src, want_pot, **pair_kw)
         return a3.reshape(B, G, 3), pp.reshape(B, G), nv.reshape(B, G), \
             ovf, stats, lvls
 
@@ -550,7 +594,9 @@ def make_fused_walk(wiring: GravityWiring, n_gravs: int, *,
         layout = source_table_layout(n, n_oct, NG, leaf_factor)
         if tables is None:
             tables = pack_walk_tables(tree, n, depth, bucket, NG,
-                                      leaf_factor, octet_caps=octet_caps)
+                                      leaf_factor,
+                                      accumulator=wiring.accumulator,
+                                      octet_caps=octet_caps)
         gsrc8 = tables.gsrc
         wtab8 = tables.wtab8
         ngrp = int(tree.blk_start.shape[0])

@@ -1,8 +1,12 @@
-"""Command-line driver: `python -m ngravs_tpu_torch.run <paramfile> [0|2]`.
+"""Command-line entry point:
+
+    python -m ngravs_tpu_torch.run <paramfile> [0|2] [--device cuda|cpu]
 
 Port of `ngravs_tpu/run.py` (reference main.c:39-54): restartflag 0 starts
-from the ICs, 2 from the last snapshot in OutputDir.  Restartflag 1 (resume
-from restart files) and `--devices K` are not yet ported and raise.
+from the ICs, 2 from the last snapshot in OutputDir.  The run is on the
+CUDA card unless `--device cpu` asks for the CPU; without a card it
+raises.  Restartflag 1 (resume from restart files) and the JAX package's
+multi-device `--devices K` are not yet ported and raise.
 """
 
 from __future__ import annotations
@@ -21,9 +25,17 @@ def main(argv=None):
         raise NotImplementedError(
             "--devices (multi-device runs) is not yet ported to "
             "ngravs_tpu_torch (ROADMAP Queue 1 item 18)")
+    device = "cuda"
+    if "--device" in argv:
+        k = argv.index("--device")
+        if k + 1 >= len(argv) or argv[k + 1] not in ("cuda", "cpu"):
+            print("--device takes cuda or cpu", file=sys.stderr)
+            return 1
+        device = argv[k + 1]
+        del argv[k:k + 2]
     if not argv:
         print("usage: python -m ngravs_tpu_torch.run <parameterfile> "
-              "[restartflag]", file=sys.stderr)
+              "[restartflag] [--device cuda|cpu]", file=sys.stderr)
         return 1
     paramfile = argv[0]
     restartflag = int(argv[1]) if len(argv) > 1 else 0
@@ -52,10 +64,10 @@ def main(argv=None):
         if not snaps:
             print("no snapshot found for RestartFlag=2", file=sys.stderr)
             return 1
-        sim = Simulation(cfg, ic_path=snaps[-1])
+        sim = Simulation(cfg, ic_path=snaps[-1], device=device)
         sim.snapshot_count = len(snaps)
     else:
-        sim = Simulation(cfg)
+        sim = Simulation(cfg, device=device)
     print(f"ngravs_tpu_torch: {sim.p.n} particles on {sim.device}, "
           f"n_gravs={cfg.n_gravs}, wiring={cfg.wiring}, "
           f"t in [{cfg.time_begin}, {cfg.time_max}]")

@@ -198,8 +198,10 @@ def test_stock_wiring_parity():
     assert len(tw.unique_laws()) == 1 and tw.names == jw.names
     np.testing.assert_array_equal(tw.pair_index_matrix(),
                                   jw.pair_index_matrix())
-    with pytest.raises(NotImplementedError, match="K1b"):
-        twiring.build_wiring(tc.replace(wiring="newton_yukawa"))
+    # the multi-law presets build now (tests/test_torch_laws.py holds them
+    # against the JAX wirings)
+    assert len(twiring.build_wiring(
+        tc.replace(wiring="newton_yukawa")).unique_laws()) == 2
     asym = twiring.GravityWiring([[tlaws.Newtonian(), tlaws.Newtonian()],
                                   [tlaws.ForceLaw(), _Doubled()]])
     asym.laws[0][1] = _Doubled()
@@ -252,6 +254,33 @@ def test_global_quantities_parity():
         np.testing.assert_allclose(getattr(ts, name).numpy(),
                                    np.asarray(getattr(js, name)),
                                    rtol=2e-6, atol=1e-6, err_msg=name)
+
+
+def test_port_modules_import_with_jax_blocked():
+    """Every module of the port, and chip_smoke.py, imports with `jax` and
+    `ngravs_tpu` made unimportable (a fresh interpreter)."""
+    import subprocess
+    import sys
+    root = os.path.dirname(PKG)
+    mods = sorted(
+        "ngravs_tpu_torch." + os.path.relpath(os.path.join(d, f), PKG)
+        [:-3].replace(os.sep, ".").replace(".__init__", "")
+        for d, _, files in os.walk(PKG) for f in files if f.endswith(".py"))
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'ngravs_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "import importlib\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m.replace('.__init__', ''))\n"
+            "importlib.import_module('chip_smoke')\n"
+            "assert not any(k == 'jax' or k.startswith(('jax.', 'ngravs_tpu.'))"
+            " for k, v in sys.modules.items() if v is not None)\n"
+            "print('ok', len(" + repr(mods) + "))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=root,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("ok")
+    assert "ngravs_tpu_torch.ops.pm" in mods and len(mods) > 20
 
 
 def test_port_imports_no_jax():

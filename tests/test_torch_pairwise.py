@@ -21,6 +21,7 @@ from ngravs_tpu.models.wiring import GravityWiring as JWiring
 from ngravs_tpu.ops.pairwise_pallas import make_pairwise_kernel
 
 from ngravs_tpu_torch.models.laws import Newtonian
+from ngravs_tpu_torch.models.wiring import GravityWiring as TWiring
 from ngravs_tpu_torch.ops.pairwise import pairwise_eval
 
 NB, G, SCH = 4, 16, 128
@@ -152,3 +153,131 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError, match="spacked"):
         pairwise_eval(targets, spt[:, :7], nst)
 
+
+
+# --------------------------------------------------------------------------
+# K1b (multi-law dispatch, accumulator count row), K1c (periodic minimum
+# image), K1d (TreePM closed-form truncation)
+# --------------------------------------------------------------------------
+
+from ngravs_tpu.config import SimulationConfig as JConfig
+from ngravs_tpu.models.wiring import build_wiring as j_build_wiring
+
+from ngravs_tpu_torch.config import SimulationConfig as TConfig
+from ngravs_tpu_torch.models.wiring import build_wiring as t_build_wiring
+from ngravs_tpu_torch.ops import pairwise as tpw
+
+BOX = 12.0          # the inputs span about 10: many pairs wrap
+PMGRID = 16         # asmth = 1.25 * 12 / 16 = 0.94: pairs on both sides of
+                    # the u = 3 cut
+
+
+def _multi_inputs(n_gravs, count_rows, seed=5):
+    tcols, sp, n_src = _inputs(seed)
+    rng = np.random.default_rng(seed + 100)
+    sp[:, 6] = rng.integers(0, n_gravs, (NB, S)).astype(np.int32) \
+        .view(np.float32)
+    tcols["grav"] = rng.integers(0, n_gravs, (NB * G, 1)).astype(np.int32)
+    if count_rows:
+        sp[:, 5] = rng.integers(1, 9, (NB, S)).astype(np.float32)
+    return tcols, sp, n_src
+
+
+def _multi_scales(wiring, tcols, sp, n_src, box, asmth, use_count):
+    """Per target: sums over valid pairs of |fac*d| per axis and |pot|,
+    from the port's own per-pair law factors."""
+    tt, st, nt = _torch_inputs(tcols, sp, n_src)
+    col = lambda k: tt[k].reshape(NB, G, 1)
+    sgid = st[:, 7].view(torch.int32)[:, None, :]
+    live = torch.arange(S)[None, None, :] < nt.reshape(NB, 1, 1)
+    valid = live & (sgid != -1) & (col("gid") >= 0) & (sgid != col("gid"))
+    d = [st[:, None, a] - col(k) for a, k in enumerate("xyz")]
+    if box:
+        d = [x - box * torch.round(x * (1.0 / box)) for x in d]
+    r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    r = torch.sqrt(r2)
+    h = torch.maximum(col("fsoft"), st[:, None, 4])
+    sg = st[:, 6].view(torch.int32)[:, None, :]
+    n = st[:, None, 5] if use_count else 1.0
+    fac = torch.zeros_like(r)
+    pot = torch.zeros_like(r)
+    for law, slots in wiring.unique_laws():
+        mk = torch.zeros_like(valid)
+        for i, j in slots:
+            mk = mk | ((col("grav") == i) & (sg == j))
+        f, p = tpw.law_factors(law, col("mass"), st[:, None, 3], r2, r, h,
+                                n, True, 0.5 / asmth if asmth else 0.0)
+        fac, pot = torch.where(mk, f, fac), torch.where(mk, p, pot)
+    return torch.stack(
+        [torch.where(valid, (fac * x).abs(), 0.).sum(-1) for x in d]
+        + [torch.where(valid, pot.abs(), 0.).sum(-1)], -1) \
+        .reshape(NB * G, 4).numpy()
+
+
+K1_CASES = {
+    # name: (wiring, n_gravs, periodic, treepm, accumulator)
+    "newton_yukawa": ("newton_yukawa", 2, False, False, False),
+    "newton_yukawa_periodic": ("newton_yukawa", 2, True, False, False),
+    "newton_yukawa_periodic_treepm": ("newton_yukawa", 2, True, True, False),
+    "three_species_periodic_treepm": ("three_species", 3, True, True, False),
+    "bam_accumulator": ("bam", 2, False, False, True),
+}
+
+
+@pytest.mark.parametrize("want_pot", [True, False])
+@pytest.mark.parametrize("case", list(K1_CASES))
+def test_k1_parts_match_pallas_interpret(case, want_pot):
+    wname, ng, periodic, treepm, acc = K1_CASES[case]
+    box = BOX if periodic else 0.0
+    kw = dict(n_gravs=ng, type_to_grav=(0, 0, 1, 0, 0, 0), wiring=wname,
+              box_size=BOX, periodic=periodic,
+              pmgrid=PMGRID if treepm else 0, ngravs_accumulator=acc)
+    jw = j_build_wiring(JConfig(**kw))
+    tw = t_build_wiring(TConfig(**kw))
+    asmth = 1.25 * BOX / PMGRID if treepm else 0.0
+    tcols, sp, n_src = _multi_inputs(ng, acc)
+    jfn = make_pairwise_kernel(jw, ng, group=G, s_chunk=SCH, box_size=box,
+                               want_pot=want_pot, treepm_asmth=asmth,
+                               interpret=True)
+    jacc, jpot, jnia = jfn({k: jnp.asarray(v) for k, v in tcols.items()},
+                           jnp.asarray(sp), jnp.asarray(n_src))
+    acc_t, pot_t, nia_t = pairwise_eval(
+        *_torch_inputs(tcols, sp, n_src), want_pot=want_pot, wiring=tw,
+        box_size=box, treepm_asmth=asmth)
+    scale = _multi_scales(tw, tcols, sp, n_src, box, asmth, acc)
+    _check_close(acc_t.numpy(), pot_t.numpy(), nia_t.numpy(),
+                 np.asarray(jacc), np.asarray(jpot) if want_pot else 0.0,
+                 np.asarray(jnia), scale, want_pot)
+    assert np.abs(np.asarray(jacc)).max() > 0
+    # the instance the kernel would run for this configuration
+    flags = tpw.instance_flags(tw, box, None, asmth, want_pot)
+    assert bool(flags & tpw.F_MULTI) and \
+        bool(flags & tpw.F_PERIODIC) == periodic and \
+        bool(flags & tpw.F_TREEPM) == treepm and \
+        bool(flags & tpw.F_COUNT) == acc
+
+
+def test_law_table_and_instances():
+    """The kernel's view of a wiring: one law index per gravity slot, the
+    law groups' kinds; K1a for the single Newton law; a law without a kernel
+    kind refused."""
+    tw = t_build_wiring(TConfig(n_gravs=3, wiring="three_species",
+                                box_size=BOX, periodic=True, pmgrid=PMGRID))
+    tab = tpw.law_table(tw)
+    assert tab.n_gravs == 3 and tab.n_laws == 3
+    assert [tab.slot[k] for k in range(9)] == \
+        list(tw.pair_index_matrix().reshape(-1))
+    assert [tab.kind[k] for k in range(3)] == [1, 3, 4]
+    assert tpw.law_table(tw) is tab                  # cached per wiring
+    assert tpw.instance_name(tpw.instance_flags(want_pot=False)) == "K1a"
+    newton = t_build_wiring(TConfig(n_gravs=2))
+    assert tpw.instance_flags(newton, want_pot=False) == 0
+    assert tpw.instance_name(tpw.instance_flags(
+        tw, BOX, None, 0.5, True)) == "K1bcd/pot"
+
+    class UserLaw(Newtonian):
+        pass
+
+    user = TWiring([[UserLaw()]])
+    with pytest.raises(ValueError, match="no kind"):
+        tpw.law_table(user)
