@@ -15,7 +15,9 @@ Phases (any failure raises and exits non-zero):
     (newton_yukawa), K1bcd (newton_yukawa and three_species in a periodic
     TreePM box) and K1b+count (bam with the accumulator).  acc and pot
     within 1e-5 of each target's sum of |terms| (the two sum in different
-    orders), pair counts equal; median times and the bound;
+    orders), pair counts equal, two launches bit-identical; the launch plan
+    (`launch_plan`: lanes P, cluster C, tile, stages, shared memory),
+    median times and the bound;
  4. slice 1, the open-box path: a synthetic GalaxyCollision-shaped IC (60k
     particles of types 1-5 as BASELINE.md counts them, two Plummer spheres
     on a collision orbit, disk -> gravity 1) written in format 1 with its
@@ -25,7 +27,8 @@ Phases (any failure raises and exits non-zero):
     relative error < 5e-3), for finite forces and for the momentum rate
     |sum m a| / sum |m a| < 1e-3, timed with the kernel and with the twin
     substituted, profiled; then K1a against the twin on the inputs of that
-    pass's largest launch;
+    pass's largest launch, with its n_src spread (max / mean) and pair
+    rate;
  5. slice 2, the comoving periodic TreePM box: 2 x 64^3 particles on
     jittered lattices (examples/cosmological_box.py:53-69, its gas made a
     second collisionless species), Omega0 0.3, OmegaLambda 0.7, OmegaBaryon
@@ -39,7 +42,7 @@ Phases (any failure raises and exits non-zero):
     periodic direct sum with the Ewald lattice correction (rms relative
     error < 2.5e-2), timed with the kernel and with the twin, PM alone
     timed, profiled; then K1 against the twin on that pass's largest
-    launch.
+    launch, as for slice 1.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON object with every K1 instance's numbers; the last line is
@@ -271,13 +274,19 @@ def kernel_bound(targets, sp, n_src, flags, ops: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def same_bits(a, b) -> bool:
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(a, b))
+
+
 def check_kernel(label: str, targets, sp, n_src, modes, kw=None):
     """K1 against its twin on the same inputs, for each want_pot in
     `modes`: acc and pot within RTOL_TERMS of each target's sum of |terms|,
-    pair counts equal; median times and the bound.  `kw`: the pair
-    evaluation's wiring keywords.  Returns {want_pot: numbers}."""
+    pair counts equal, a second launch bit-identical to the first; median
+    times, the bound and the launch plan.  `kw`: the pair evaluation's
+    wiring keywords.  Returns {want_pot: numbers}."""
     from ngravs_tpu_torch.ops.pairwise import (instance_flags, instance_name,
-                                               pairwise_eval,
+                                               launch_plan, pairwise_eval,
                                                pairwise_eval_torch)
     kw = kw or {}
     scale, ops = term_scales(targets, sp, n_src, **kw)
@@ -285,8 +294,14 @@ def check_kernel(label: str, targets, sp, n_src, modes, kw=None):
     for want_pot in modes:
         flags = instance_flags(want_pot=want_pot, **kw)
         name = instance_name(flags)
+        plan = launch_plan(targets["x"].shape[0] // sp.shape[0], sp.shape[2],
+                           flags)
         acc, pot, nia = pairwise_eval(targets, sp, n_src, want_pot, **kw)
+        again = pairwise_eval(targets, sp, n_src, want_pot, **kw)
         torch.cuda.synchronize()
+        if not same_bits((acc, pot, nia), again):
+            raise AssertionError(f"{label}: {name} gave other bits on a "
+                                 "second launch")
         acc_t, pot_t, nia_t = pairwise_eval_torch(targets, sp, n_src,
                                                   want_pot, **kw)
         if not (torch.isfinite(acc).all() and torch.isfinite(pot).all()):
@@ -312,8 +327,10 @@ def check_kernel(label: str, targets, sp, n_src, modes, kw=None):
                                           ops[1 if want_pot else 0])
         report[want_pot] = dict(name=name, max_abs_err=float(err_a.max()),
                                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                bound_by=bound_by)
-        print(f"{label}: {name} {tuple(sp.shape)}: max|dacc|="
+                                bound_by=bound_by, plan=plan._asdict())
+        print(f"{label}: {name} {tuple(sp.shape)} plan P={plan.lanes} "
+              f"C={plan.cluster} tile={plan.tile} stages={plan.stages} "
+              f"smem={plan.smem} B: bit-identical twice, max|dacc|="
               f"{float(err_a.max()):.3g} (max|acc| "
               f"{float(acc_t.abs().max()):.4g}) max|dpot|="
               f"{float(err_p.max()):.3g} pairs={pairs} kernel {ms:.3f} ms "
@@ -332,11 +349,20 @@ def record_launches(pairwise_eval, launched):
     return recording_eval
 
 
+def largest_launch(launched):
+    """The recorded launch (targets, sp, n_src, want_pot, kw) with the most
+    sources."""
+    return max(launched, key=lambda a: int(a[2].sum()))
+
+
 def check_largest_launch(label: str, launched):
     """K1 against the twin on the inputs of the launch with the most
-    sources (a path's own shapes and data)."""
-    targets, sp, n_src, want_pot, kw = max(launched,
-                                           key=lambda a: int(a[2].sum()))
+    sources (a path's own shapes and data), with its n_src spread."""
+    targets, sp, n_src, want_pot, kw = largest_launch(launched)
+    ns = n_src.double()
+    print(f"{label}: largest of {len(launched)} launches, {sp.shape[0]} "
+          f"blocks, n_src max {int(ns.max())} / mean {float(ns.mean()):.1f}"
+          f" = spread {float(ns.max() / ns.mean()):.2f}", flush=True)
     return check_kernel(label, targets, sp, n_src, (want_pot,),
                         kw)[want_pot]
 
@@ -516,6 +542,8 @@ def write_galaxy_collision(run_dir: str, seed: int = 7) -> str:
 
 
 def galaxy_path(dev, card: str):
+    """Slice 1's path; its K1 launch count and the inputs of every launch
+    of its final full pass."""
     from ngravs_tpu_torch.config import read_parameter_file
     from ngravs_tpu_torch.integrate.runner import Simulation
     from ngravs_tpu_torch.ops.direct import direct_forces
@@ -571,8 +599,7 @@ def galaxy_path(dev, card: str):
     timed_passes(sim, solver, card, "force pass")
     profile_pass(sim, solver, card, "profiled pass")
     sim.close()
-    return launches, check_largest_launch("kernel (main-path batch)",
-                                          launched)
+    return launches, launched
 
 
 # --------------------------------------------------------------------------
@@ -636,6 +663,8 @@ def write_cosmo_box(run_dir: str, seed: int = 42) -> str:
 
 
 def box_path(dev, card: str):
+    """Slice 2's path; its K1 launch count and the inputs of every launch
+    of its final short-range pass."""
     from ngravs_tpu_torch.config import read_parameter_file
     from ngravs_tpu_torch.integrate.runner import Simulation
     from ngravs_tpu_torch.ops import lattice
@@ -735,8 +764,7 @@ def box_path(dev, card: str):
           f"TreePM pass about {pass_s * 1e3 + pm_ms:.1f} ms", flush=True)
     profile_pass(sim, solver, card, "profiled TreePM pass", with_pm=True)
     sim.close()
-    return launches, check_largest_launch("kernel (box-path batch)",
-                                          launched)
+    return launches, launched
 
 
 # --------------------------------------------------------------------------
@@ -749,7 +777,7 @@ def kernel_entry(name: str, launches: int, nums: dict, errs) -> dict:
             "max_abs_err": max(errs),
             "ms": nums["ms"], "plain_ms": nums["plain_ms"],
             "bound_ms": nums["bound_ms"], "bound_by": nums["bound_by"],
-            "library_ms": None}
+            "library_ms": None, "plan": nums["plan"]}
 
 
 def main() -> int:
@@ -785,8 +813,11 @@ def main() -> int:
                                        *inputs, (False, True), kw)
 
     # phases 4 and 5: the two main paths, each with its counts from 0
-    launches1, galaxy_batch = galaxy_path(dev, card)
-    launches2, box_batch = box_path(dev, card)
+    launches1, launched = galaxy_path(dev, card)
+    galaxy_batch = check_largest_launch("kernel (main-path batch)", launched)
+    launches2, launched = box_path(dev, card)
+    box_batch = check_largest_launch("kernel (box-path batch)", launched)
+    del launched
 
     entries = [kernel_entry("K1a (slice 1 path, open box, one Newton law)",
                             launches1, galaxy_batch,

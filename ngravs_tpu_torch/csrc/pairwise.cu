@@ -15,38 +15,77 @@
 // Layout: targets are 7 columns of n_blocks * group entries (x, y, z, mass,
 // grav i32, fsoft, gid i32).  Sources are [n_blocks, 8, s_cap] f32 with rows
 // x, y, z, mass, soft, count, grav, gid; rows 6/7 hold int32 bit patterns
-// and are only ever reinterpreted (__float_as_int), never converted.
+// and are only ever reinterpreted (__float_as_int), never converted.  The
+// five features are template flags <WANT_POT, PERIODIC, TREEPM, MULTI_LAW,
+// USE_COUNT>; the all-false instance is K1a (one Newton law).  Under
+// MULTI_LAW the wiring is a small table (a law index per gravity slot; a
+// kind and four parameters per law) staged in shared memory, and each pair
+// runs its own law only.
 //
-// Design: one thread block per target block, one thread per target (its
-// position and accumulators in registers).  The block stages [8, TILE]
-// source tiles in shared memory and loops over ceil(n_src[b] / TILE) tiles
-// only; that loop bound replaces the Pallas early exit and DMA clamp.
-// Accumulation is in f32, per tile and then across tiles.  The five
-// features are template flags <WANT_POT, PERIODIC, TREEPM, MULTI_LAW,
-// USE_COUNT>, so each run pays only for what its configuration uses; the
-// all-false instance is K1a (one Newton law).  The TPU kernel ORs one
-// mask per law group over every pair; here the wiring becomes a small
-// table (law index per gravity slot; kind and up to four parameters per
-// law), staged in shared memory, and each pair looks its law up and runs
-// that law only.  The TreePM truncation uses the Abramowitz-Stegun erfc
-// of the JAX package and expf.
+// Design.  The walk launches B = 128 blocks of G = 64 targets with ragged
+// n_src (1 to S rows).  A launch's shape (P, C, TILE, STAGES) comes from
+// ops/pairwise.py:launch_plan.
+//  - Sources split across lanes: a CTA holds G targets x P lanes (at most
+//    512 threads, rounded up to whole warps), and thread (t, p) sums target t over the rows p, p + P,
+//    ... of each tile.  A warp is 32 targets of one lane, so its threads
+//    read one shared-memory row at a time, as a broadcast.  A 128-block
+//    launch keeps 8x to 16x the warps of one thread per target resident.
+//  - A cluster of C CTAs per target block, each on a contiguous part of the
+//    block's live rows (n_src[b] cut C ways on multiples of 4): the heaviest
+//    block no longer runs on one SM alone.  Rank 0 adds the other ranks'
+//    sums from distributed shared memory after a cluster barrier.
+//  - A ring of STAGES source tiles in dynamic shared memory, filled by 1-D
+//    bulk copies (cp.async.bulk, one per row, completing on the stage's
+//    "full" mbarrier); warp 0 refills a stage once every warp has released
+//    it on its "empty" mbarrier, so copies overlap the arithmetic.
+//  - Multi-law instances sort the block's targets by gravity (a stable
+//    counting sort in shared memory) before assigning them to threads: a
+//    warp then holds one target gravity but at the boundaries, and, reading
+//    one source row, runs one law (no divergence on the law switch).
+//  - Sums in a fixed order: per lane a tile's terms, then the tile into the
+//    lane's total; then the lanes in order; then the ranks in order.  No
+//    atomics, so every launch gives the same bits.
 //
-// What bounds it: FP32 ALU work.  Each pair costs about 25 flops plus a
-// square root and a division in the Newton case, a few exponentials more
-// under TreePM or Yukawa, with no tensor-core work and 32 to 40 bytes of
-// shared-memory reads that every thread of the block shares.  With 64
-// threads a block and the walk's 128 blocks a launch, the card is
-// under-occupied, and a warp whose targets belong to different gravities
-// diverges on the law switch.  More blocks per launch, a split of each
-// block's sources across warps, and targets sorted by gravity inside a
-// block are the fixes for a later change.
+// Tensor cores are not used: the work per pair is a nonlinear function of
+// a coordinate difference, not a product, and the GEMM form r^2 = |t|^2 +
+// |s|^2 - 2 t.s cancels catastrophically in f32 at a box's scale
+// (coordinates near 5e4 against softenings near 26), before TF32's 10-bit
+// mantissa even enters.
+//
+// What bounds it, once the card is full: instruction issue on the FP32 and
+// SFU pipes.  Each pair runs a sqrt and two IEEE divisions (and under
+// TreePM or Yukawa exponentials and the A&S erfc) as dependent chains,
+// besides 6 to 8 shared-memory loads and the select; the source rows are
+// read once from device memory, far below its rate.  Which pipe saturates
+// first has not been measured (no hardware counters on the test machine).
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (k1_ab.py, in turns with
+// the first design of one thread per target on the same inputs): the
+// TreePM box path's largest launch (multi-law, periodic, TreePM; 128
+// blocks, S = 8192, 20.0M pairs) 0.329 ms against 1.989 ms; the open
+// GalaxyCollision path's largest launch (one Newton law; S = 32768, 18.5M
+// pairs) 0.324 ms against 3.009 ms; the synthetic instances at S = 4096
+// 0.15 to 0.33 ms against 1.02 to 3.17 ms.  That is 2 to 5% of the bound
+// of the operations the pairs need over the card's FP32 peak.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int TILE = 256;
 constexpr int MAX_GROUP = 256;
+// A CTA has at most 512 threads (a group of 256 takes 2 lanes), so that two
+// CTAs share an SM at 64 registers a thread.  The TreePM multi-law
+// instances with the potential spill at 64: they get one CTA an SM and up
+// to 128 registers (pairwise_kernel's __launch_bounds__).
+constexpr int MAX_THREADS = 512;
+constexpr int MAX_LANES = 16;
+constexpr int MAX_STAGES = 4;
+constexpr int MAX_CLUSTER = 8;
 constexpr int MAX_NG = 8;      // gravity cap of the law table
 constexpr int MAX_LAWS = 16;   // distinct laws of one wiring
 
@@ -77,7 +116,72 @@ struct NgravsLawTable {
   float par[MAX_LAWS * 4];
 };
 
+// A launch's shape (ops/pairwise.py:launch_plan); mirrored by a ctypes
+// Structure.
+struct NgravsPlan {
+  int lanes;    // P: threads per target
+  int cluster;  // C: CTAs per target block
+  int tile;     // source rows per ring stage, a multiple of 4
+  int stages;   // ring depth
+  int smem;     // dynamic shared-memory bytes, as smem_bytes gives them
+};
+
 namespace {
+
+// Dynamic shared memory: the ring [stages][rows][tile] f32, the lane sums
+// [lanes][5][group] (acc x, y, z, pot f32 and the pair count i32), and the
+// full and empty barriers [2 * stages] u64.  ops/pairwise.py:launch_plan
+// computes the same.
+int smem_bytes(int rows, int tile, int stages, int lanes, int group) {
+  return 4 * stages * rows * tile + 4 * 5 * lanes * group + 16 * stages;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// spin until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// one 1-D bulk copy (TMA) of `bytes` (a multiple of 16) into this CTA's
+// shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
 
 __device__ __forceinline__ float safe_inv(float x) {
   return x > 0.0f ? 1.0f / x : 0.0f;
@@ -294,87 +398,181 @@ __device__ __forceinline__ void law_pair(int kind, const float* par, float tm,
   }
 }
 
+struct KernelArgs {
+  const float* tx;
+  const float* ty;
+  const float* tz;
+  const float* tmass;
+  const int* tgrav;
+  const float* tfsoft;
+  const int* tgid;
+  const float* spacked;
+  const int* n_src;
+  int group;
+  int s_cap;
+  NgravsLawTable table;
+  NgravsPlan plan;
+  float box;
+  float inv_box;
+  float inv2a;
+  float* acc;
+  float* pot;
+  int* nia;
+};
+
+// ring rows: x, y, z, mass, soft, gid, then count (USE_COUNT), then grav
+// (MULTI_LAW); their rows in the packed source list
+constexpr int R_GID = 5;
+template <bool MULTI_LAW, bool USE_COUNT>
+__device__ __forceinline__ int packed_row(int r) {
+  if (r < R_GID) return r;
+  if (r == R_GID) return 7;
+  return (USE_COUNT && r == R_GID + 1) ? 5 : 6;
+}
+
+// Issue the copies of tile j of rows [beg, end) into its ring stage: each
+// ring row rounded up to 4 floats (inside the row: s_cap and the cuts are
+// multiples of 4), completing on the stage's full barrier (bars + 8 s).
+// The block's source pointer is recomputed here so that it holds no
+// register across the consumers' loop.
+template <bool MULTI_LAW, bool USE_COUNT>
+__device__ __forceinline__ void issue_tile(const KernelArgs& a, float* ring,
+                                           uint32_t bars, int beg, int end,
+                                           int j) {
+  constexpr int ROWS = 6 + (USE_COUNT ? 1 : 0) + (MULTI_LAW ? 1 : 0);
+  const int TILE = a.plan.tile, s = j % a.plan.stages;
+  const int base = beg + j * TILE;
+  const uint32_t bytes =
+      static_cast<uint32_t>(((min(TILE, end - base) + 3) & ~3) * 4);
+  const float* src = a.spacked +
+                     static_cast<long>(blockIdx.x / a.plan.cluster) * 8 *
+                         a.s_cap + base;
+  float* st = ring + s * ROWS * TILE;
+  mbar_expect_tx(bars + 8 * s, bytes * ROWS);
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+    bulk_copy(st + r * TILE,
+              src + static_cast<long>(packed_row<MULTI_LAW, USE_COUNT>(r)) *
+                        a.s_cap,
+              bytes, bars + 8 * s);
+}
+
 template <bool WANT_POT, bool PERIODIC, bool TREEPM, bool MULTI_LAW,
           bool USE_COUNT>
-__global__ void __launch_bounds__(MAX_GROUP)
-pairwise_kernel(const float* __restrict__ tx, const float* __restrict__ ty,
-                const float* __restrict__ tz, const float* __restrict__ tmass,
-                const int* __restrict__ tgrav,
-                const float* __restrict__ tfsoft,
-                const int* __restrict__ tgid,
-                const float* __restrict__ spacked,
-                const int* __restrict__ n_src, int group, int s_cap,
-                const NgravsLawTable table, float box, float inv_box,
-                float inv2a, float* __restrict__ acc,
-                float* __restrict__ pot, int* __restrict__ nia) {
-  __shared__ float s_x[TILE], s_y[TILE], s_z[TILE], s_m[TILE], s_h[TILE];
-  __shared__ int s_gid[TILE];
-  __shared__ float s_n[USE_COUNT ? TILE : 1];
-  __shared__ int s_g[MULTI_LAW ? TILE : 1];
+__global__ void __launch_bounds__(MAX_THREADS,
+                                  (WANT_POT && TREEPM && MULTI_LAW) ? 1 : 2)
+pairwise_kernel(const __grid_constant__ KernelArgs a) {
+  constexpr int ROWS = 6 + (USE_COUNT ? 1 : 0) + (MULTI_LAW ? 1 : 0);
+  constexpr int R_COUNT = R_GID + 1;
+  constexpr int R_GRAV = R_GID + (USE_COUNT ? 2 : 1);
+  extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int s_slot[MULTI_LAW ? MAX_NG * MAX_NG : 1];
   __shared__ int s_kind[MULTI_LAW ? MAX_LAWS : 1];
   __shared__ float s_par[MULTI_LAW ? MAX_LAWS * 4 : 1];
+  __shared__ int s_tg[MULTI_LAW ? MAX_GROUP : 1];
+  __shared__ int s_perm[MULTI_LAW ? MAX_GROUP : 1];
 
-  const int b = blockIdx.x;
-  const long t = static_cast<long>(b) * group + threadIdx.x;
-  const float x = tx[t], y = ty[t], z = tz[t], hf = tfsoft[t];
-  const int gid = tgid[t];
-  const bool tvalid = gid >= 0;
-  const int ng = MULTI_LAW ? table.n_gravs : 1;
+  const int group = a.group, s_cap = a.s_cap;
+  const int P = a.plan.lanes, C = a.plan.cluster;
+  const int TILE = a.plan.tile, STAGES = a.plan.stages;
+  float* ring = reinterpret_cast<float*>(smem);
+  float* red = ring + STAGES * ROWS * TILE;
+  // full barriers at bars + 8 s, empty ones at bars + 8 (STAGES + s)
+  const uint32_t bars = smem_addr(red + 5 * P * group);
+
+  const int tid = threadIdx.x;
+  const int slot = tid % group, lane = tid / group;
+  // the CTA is rounded up to whole warps: a thread past G x P lanes takes
+  // part in the barriers only
+  const bool spare = lane >= P;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.x / C;
+  const int ng = MULTI_LAW ? a.table.n_gravs : 1;
+
+  // this rank's part of the block's live rows, cut on multiples of 4
+  const int ns = min(max(a.n_src[b], 0), s_cap);
+  const int part = ((ns + C - 1) / C + 3) & ~3;
+  const int beg = min(rank * part, ns), end = min(beg + part, ns);
+  const long t0 = static_cast<long>(b) * group;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (STAGES + s), blockDim.x / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (MULTI_LAW) {
+    for (int k = tid; k < MAX_NG * MAX_NG; k += blockDim.x)
+      s_slot[k] = a.table.slot[k];
+    for (int k = tid; k < MAX_LAWS; k += blockDim.x)
+      s_kind[k] = a.table.kind[k];
+    for (int k = tid; k < MAX_LAWS * 4; k += blockDim.x)
+      s_par[k] = a.table.par[k];
+    if (tid < group) s_tg[tid] = min(max(a.tgrav[t0 + tid], 0), ng - 1);
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int j = 0; j < min(STAGES, (end - beg + TILE - 1) / TILE); ++j)
+      issue_tile<MULTI_LAW, USE_COUNT>(a, ring, bars, beg, end, j);
+
+  // the target of this thread's slot: under MULTI_LAW the block's targets
+  // in a stable order by gravity, so that a warp holds one gravity
+  int t = slot;
+  if (MULTI_LAW) {
+    if (tid < group) {
+      const int g = s_tg[tid];
+      int pos = 0;
+      for (int k = 0; k < group; ++k) {
+        const int gk = s_tg[k];
+        pos += (gk < g || (gk == g && k < tid)) ? 1 : 0;
+      }
+      s_perm[pos] = tid;
+    }
+    __syncthreads();
+    t = s_perm[slot];
+  }
+  const long ti = t0 + t;
+  const float x = a.tx[ti], y = a.ty[ti], z = a.tz[ti], hf = a.tfsoft[ti];
+  const int gid = a.tgid[ti];
+  // a padding target (gid -1) has no valid pair: its lane skips the rows
+  const int k0 = gid >= 0 && !spare ? lane : TILE;
   float tm = 0.0f;
   int trow = 0;
   if (MULTI_LAW) {
-    tm = tmass[t];
-    trow = min(max(tgrav[t], 0), ng - 1) * ng;
-    for (int k = threadIdx.x; k < MAX_NG * MAX_NG; k += blockDim.x)
-      s_slot[k] = table.slot[k];
-    for (int k = threadIdx.x; k < MAX_LAWS; k += blockDim.x)
-      s_kind[k] = table.kind[k];
-    for (int k = threadIdx.x; k < MAX_LAWS * 4; k += blockDim.x)
-      s_par[k] = table.par[k];
+    tm = a.tmass[ti];
+    trow = min(max(a.tgrav[ti], 0), ng - 1) * ng;
   }
 
   float ax = 0.0f, ay = 0.0f, az = 0.0f, pp = 0.0f;
   int nv = 0;
-
-  const int ns = n_src[b];
-  const float* src = spacked + static_cast<long>(b) * 8 * s_cap;
-  for (int base = 0; base < ns; base += TILE) {
-    const int cnt = min(TILE, ns - base);
-    __syncthreads();
-    for (int k = threadIdx.x; k < cnt; k += blockDim.x) {
-      const int c = base + k;
-      s_x[k] = src[0 * s_cap + c];
-      s_y[k] = src[1 * s_cap + c];
-      s_z[k] = src[2 * s_cap + c];
-      s_m[k] = src[3 * s_cap + c];
-      s_h[k] = src[4 * s_cap + c];
-      if (USE_COUNT) s_n[k] = src[5 * s_cap + c];
-      if (MULTI_LAW)
-        s_g[k] = min(max(__float_as_int(src[6 * s_cap + c]), 0), ng - 1);
-      s_gid[k] = __float_as_int(src[7 * s_cap + c]);
-    }
-    __syncthreads();
+  int s = 0;
+  uint32_t parity = 0;
+  for (int j = 0; beg + j * TILE < end; ++j) {
+    const int cnt = min(TILE, end - beg - j * TILE);
+    const float* st = ring + s * ROWS * TILE;
+    mbar_wait(bars + 8 * s, parity);
     // two-level sums: a tile's terms first, then the tile into the total
     // (as the TPU kernel adds each source chunk's sum), so that small terms
     // are not rounded away against a large running sum
     float tx_ = 0.0f, ty_ = 0.0f, tz_ = 0.0f, tp_ = 0.0f;
-    for (int k = 0; k < cnt; ++k) {
-      const int sgid = s_gid[k];
-      const bool valid = tvalid && sgid != -1 && sgid != gid;
-      float dx = s_x[k] - x;
-      float dy = s_y[k] - y;
-      float dz = s_z[k] - z;
+    for (int k = k0; k < cnt; k += P) {
+      const int sgid = __float_as_int(st[R_GID * TILE + k]);
+      const bool valid = sgid != -1 && sgid != gid;
+      float dx = st[k] - x;
+      float dy = st[TILE + k] - y;
+      float dz = st[2 * TILE + k] - z;
       if (PERIODIC) {
         // minimum image, rounding half to even like jnp.round
-        dx = dx - box * rintf(dx * inv_box);
-        dy = dy - box * rintf(dy * inv_box);
-        dz = dz - box * rintf(dz * inv_box);
+        dx = dx - a.box * rintf(dx * a.inv_box);
+        dy = dy - a.box * rintf(dy * a.inv_box);
+        dz = dz - a.box * rintf(dz * a.inv_box);
       }
       const float r2 = dx * dx + dy * dy + dz * dz;
       const float r = sqrtf(r2);
-      const float h = fmaxf(hf, s_h[k]);
-      const float sm = s_m[k];
+      const float h = fmaxf(hf, st[4 * TILE + k]);
+      const float sm = st[3 * TILE + k];
       float fac, p = 0.0f;
       if (!MULTI_LAW && !TREEPM) {
         if (r >= h) {
@@ -389,12 +587,15 @@ pairwise_kernel(const float* __restrict__ tx, const float* __restrict__ ty,
         int kind = KIND_NEWTON;
         const float* par = s_par;
         if (MULTI_LAW) {
-          const int li = s_slot[trow + s_g[k]];
+          const int sg = min(max(__float_as_int(st[R_GRAV * TILE + k]), 0),
+                             ng - 1);
+          const int li = s_slot[trow + sg];
           kind = s_kind[li];
           par = s_par + 4 * li;
         }
-        law_pair<WANT_POT, TREEPM>(kind, par, tm, sm, r2, r, h,
-                                   USE_COUNT ? s_n[k] : 1.0f, inv2a, fac, p);
+        law_pair<WANT_POT, TREEPM>(
+            kind, par, tm, sm, r2, r, h,
+            USE_COUNT ? st[R_COUNT * TILE + k] : 1.0f, a.inv2a, fac, p);
       }
       // a select, not a multiply: an invalid pair's factor may be inf/NaN
       if (valid) {
@@ -409,12 +610,97 @@ pairwise_kernel(const float* __restrict__ tx, const float* __restrict__ ty,
     ay += ty_;
     az += tz_;
     if (WANT_POT) pp += tp_;
+    // release the stage; warp 0 refills it with tile j + STAGES once every
+    // warp has
+    __syncwarp();
+    if ((tid & 31) == 0) mbar_arrive(bars + 8 * (STAGES + s));
+    if (tid < 32 && beg + (j + STAGES) * TILE < end) {
+      mbar_wait(bars + 8 * (STAGES + s), parity);
+      if (tid == 0)
+        issue_tile<MULTI_LAW, USE_COUNT>(a, ring, bars, beg, end,
+                                         j + STAGES);
+      __syncwarp();
+    }
+    if (++s == STAGES) {
+      s = 0;
+      parity ^= 1;
+    }
   }
-  acc[3 * t + 0] = ax;
-  acc[3 * t + 1] = ay;
-  acc[3 * t + 2] = az;
-  if (WANT_POT) pot[t] = pp;
-  nia[t] = nv;
+
+  // the lanes' sums in lane order, into lane 0's entries
+  const int o = lane * 5 * group + slot;
+  int* redi = reinterpret_cast<int*>(red);
+  if (!spare) {
+    red[o] = ax;
+    red[o + group] = ay;
+    red[o + 2 * group] = az;
+    red[o + 3 * group] = pp;
+    redi[o + 4 * group] = nv;
+  }
+  __syncthreads();
+  if (lane == 0) {
+    for (int q = 1; q < P; ++q) {
+      const int oq = q * 5 * group + slot;
+      ax += red[oq];
+      ay += red[oq + group];
+      az += red[oq + 2 * group];
+      pp += red[oq + 3 * group];
+      nv += redi[oq + 4 * group];
+    }
+    red[slot] = ax;
+    red[slot + group] = ay;
+    red[slot + 2 * group] = az;
+    red[slot + 3 * group] = pp;
+    redi[slot + 4 * group] = nv;
+  }
+  // the ranks' sums in rank order, by rank 0 from distributed shared memory
+  if (C > 1) {
+    cluster.sync();
+    if (rank == 0 && lane == 0) {
+      for (int q = 1; q < C; ++q) {
+        const float* rq = cluster.map_shared_rank(red, q);
+        ax += rq[slot];
+        ay += rq[slot + group];
+        az += rq[slot + 2 * group];
+        pp += rq[slot + 3 * group];
+        nv += reinterpret_cast<const int*>(rq)[slot + 4 * group];
+      }
+    }
+    cluster.sync();  // no rank leaves while rank 0 reads its shared memory
+  }
+  if (rank == 0 && lane == 0) {
+    a.acc[3 * ti + 0] = ax;
+    a.acc[3 * ti + 1] = ay;
+    a.acc[3 * ti + 2] = az;
+    if (WANT_POT) a.pot[ti] = pp;
+    a.nia[ti] = nv;
+  }
+}
+
+template <bool WANT_POT, bool PERIODIC, bool TREEPM, bool MULTI_LAW,
+          bool USE_COUNT>
+cudaError_t launch(const KernelArgs& args, int n_blocks, cudaStream_t stream) {
+  const NgravsPlan& pl = args.plan;
+  auto kern =
+      pairwise_kernel<WANT_POT, PERIODIC, TREEPM, MULTI_LAW, USE_COUNT>;
+  if (pl.smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+    if (e != cudaSuccess) return e;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = pl.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_blocks * pl.cluster);
+  cfg.blockDim = dim3((args.group * pl.lanes + 31) / 32 * 32);
+  cfg.dynamicSmemBytes = pl.smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, args);
 }
 
 }  // namespace
@@ -422,34 +708,46 @@ pairwise_kernel(const float* __restrict__ tx, const float* __restrict__ ty,
 // Returns the cudaError_t of the launch (0 = success).  `flags` ORs
 // F_POT, F_PERIODIC, F_TREEPM, F_MULTI and F_COUNT (F_COUNT only with
 // F_MULTI); `table` may be null without F_MULTI and `pot` without F_POT.
+// `group` must be a multiple of 8 up to 256, `s_cap` a multiple of 4 and
+// `spacked` 16-byte aligned; `plan` is ops/pairwise.py:launch_plan's.
 // Launches on `stream` and does not synchronise.
 extern "C" int ngravs_pairwise(
     const float* tx, const float* ty, const float* tz, const float* tmass,
     const int* tgrav, const float* tfsoft, const int* tgid,
     const float* spacked, const int* n_src, int n_blocks, int group,
-    int s_cap, int flags, const NgravsLawTable* table, float box,
-    float inv_box, float inv2a, float* acc, float* pot, int* nia,
-    void* stream) {
+    int s_cap, int flags, const NgravsLawTable* table,
+    const NgravsPlan* plan, float box, float inv_box, float inv2a,
+    float* acc, float* pot, int* nia, void* stream) {
   if (n_blocks <= 0) return 0;
-  if (group <= 0 || group > MAX_GROUP)
-    return static_cast<int>(cudaErrorInvalidValue);
-  NgravsLawTable tab = {};
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (group <= 0 || group > MAX_GROUP || group % 8 || s_cap % 4 ||
+      plan == nullptr || reinterpret_cast<uintptr_t>(spacked) % 16)
+    return invalid;
+  const NgravsPlan pl = *plan;
+  const int rows = 6 + ((flags & F_MULTI) ? 1 : 0) + ((flags & F_COUNT) ? 1 : 0);
+  if (pl.lanes < 1 || pl.lanes > MAX_LANES ||
+      group * pl.lanes > MAX_THREADS || pl.cluster < 1 ||
+      pl.cluster > MAX_CLUSTER || (pl.cluster & (pl.cluster - 1)) ||
+      pl.tile <= 0 || pl.tile % 4 || pl.stages < 2 ||
+      pl.stages > MAX_STAGES ||
+      pl.smem != smem_bytes(rows, pl.tile, pl.stages, pl.lanes, group))
+    return invalid;
+  KernelArgs args = {tx, ty, tz, tmass, tgrav, tfsoft, tgid, spacked, n_src,
+                     group, s_cap, {}, pl, box, inv_box, inv2a, acc, pot,
+                     nia};
   if (flags & F_MULTI) {
     if (table == nullptr || table->n_gravs < 1 || table->n_gravs > MAX_NG ||
         table->n_laws < 1 || table->n_laws > MAX_LAWS)
-      return static_cast<int>(cudaErrorInvalidValue);
-    tab = *table;
+      return invalid;
+    args.table = *table;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NGRAVS_ARGS                                                         \
-  tx, ty, tz, tmass, tgrav, tfsoft, tgid, spacked, n_src, group, s_cap, tab, \
-      box, inv_box, inv2a, acc, pot, nia
-#define NGRAVS_CASE(F)                                                   \
-  case F:                                                                \
-    pairwise_kernel<((F)&F_POT) != 0, ((F)&F_PERIODIC) != 0,             \
-                    ((F)&F_TREEPM) != 0, ((F)&F_MULTI) != 0,             \
-                    ((F)&F_COUNT) != 0><<<n_blocks, group, 0, s>>>(      \
-        NGRAVS_ARGS);                                                    \
+  cudaError_t e;
+#define NGRAVS_CASE(F)                                                    \
+  case F:                                                                 \
+    e = launch<((F)&F_POT) != 0, ((F)&F_PERIODIC) != 0,                   \
+               ((F)&F_TREEPM) != 0, ((F)&F_MULTI) != 0,                   \
+               ((F)&F_COUNT) != 0>(args, n_blocks, s);                    \
     break;
   switch (flags) {
     NGRAVS_CASE(0) NGRAVS_CASE(1) NGRAVS_CASE(2) NGRAVS_CASE(3)
@@ -459,9 +757,9 @@ extern "C" int ngravs_pairwise(
     NGRAVS_CASE(24) NGRAVS_CASE(25) NGRAVS_CASE(26) NGRAVS_CASE(27)
     NGRAVS_CASE(28) NGRAVS_CASE(29) NGRAVS_CASE(30) NGRAVS_CASE(31)
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return invalid;
   }
 #undef NGRAVS_CASE
-#undef NGRAVS_ARGS
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,8 +19,11 @@ JAX kernel's wrapper, and takes the arguments of `make_pairwise_kernel`
 kernel (`csrc/pairwise.cu`), built with nvcc for sm_90a at first use into
 `build/` at the repository root and loaded through ctypes; the wiring
 reaches it as a table of law kinds and parameters, and a law the kernel
-has no kind for raises.  A CPU tensor goes to the plain twin
-`pairwise_eval_torch`.  There is no fallback from one to the other.
+has no kind for raises.  The launch's shape (lanes per target, CTAs per
+block, tile, ring depth) is `launch_plan`'s; the kernel takes a group of
+at most 256 targets in multiples of 8 and an S in multiples of 4.  A CPU
+tensor goes to the plain twin `pairwise_eval_torch`.  There is no
+fallback from one to the other, nor to a smaller plan.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from typing import NamedTuple
 
 import torch
 
@@ -49,9 +53,14 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _NEWTON = L.Newtonian()
 _lib = None
 
-# kernel instance flags and the law table's limits (csrc/pairwise.cu)
+# kernel instance flags and the law table's and launch's limits
+# (csrc/pairwise.cu)
 F_POT, F_PERIODIC, F_TREEPM, F_MULTI, F_COUNT = 1, 2, 4, 8, 16
 MAX_NG, MAX_LAWS = 8, 16
+MAX_GROUP, MAX_THREADS, MAX_SMEM = 256, 512, 232448
+# the kernel's static shared memory: the law table, gravity keys and order
+STATIC_SMEM = 4 * (MAX_NG * MAX_NG + MAX_LAWS + 4 * MAX_LAWS
+                   + 2 * MAX_GROUP)
 # law kinds of the kernel, by exact law class
 _KINDS = {L.NoneLaw: 0, L.Newtonian: 1, L.NegNewtonian: 2, L.Yukawa: 3,
           L.ColoYuk: 4, L.BamBam: 5, L.SourceBamBaryon: 6,
@@ -67,6 +76,54 @@ class _LawTable(ctypes.Structure):
                 ("par", ctypes.c_float * (MAX_LAWS * 4))]
 
 
+class _Plan(ctypes.Structure):
+    _fields_ = [("lanes", ctypes.c_int), ("cluster", ctypes.c_int),
+                ("tile", ctypes.c_int), ("stages", ctypes.c_int),
+                ("smem", ctypes.c_int)]
+
+
+class LaunchPlan(NamedTuple):
+    """A K1 launch's shape: `lanes` (P) threads per target, `cluster` (C)
+    CTAs per target block, `tile` source rows per ring stage, `stages`
+    ring stages; `threads` per CTA (G x P rounded up to whole warps) and
+    `smem` dynamic shared-memory bytes."""
+    lanes: int
+    cluster: int
+    tile: int
+    stages: int
+    threads: int
+    smem: int
+
+
+def launch_plan(group: int, s_cap: int, flags: int) -> LaunchPlan:
+    """The kernel's launch shape for blocks of `group` targets over `s_cap`
+    packed source rows, instance `flags`; known on the host without
+    reading n_src.  The most lanes per target, up to 16, that keep a CTA
+    within 512 threads (P = 2 for a group of 256); C = 1 to 4 CTAs per
+    block as s_cap allows about 1024 rows each; tiles of 32 rows per lane
+    (at most s_cap) in a ring of 3 stages.  Raises ValueError, before any
+    launch, for a group or S the kernel does not take (its entry point
+    returns cudaErrorInvalidValue for them)."""
+    if not (0 < group <= MAX_GROUP and group % 8 == 0) \
+            or s_cap <= 0 or s_cap % 4:
+        raise ValueError(
+            f"launch_plan refuses the pair kernel launch: group {group} "
+            f"must be a multiple of 8 up to {MAX_GROUP} and S {s_cap} a "
+            f"positive multiple of 4")
+    lanes = 16
+    while group * lanes > MAX_THREADS:
+        lanes //= 2
+    cluster = 1
+    while cluster < 4 and s_cap >= 1024 * 2 * cluster:
+        cluster *= 2
+    tile = min(32 * lanes, -(-s_cap // 4) * 4)
+    stages = 3
+    rows = 6 + (1 if flags & F_MULTI else 0) + (1 if flags & F_COUNT else 0)
+    smem = 4 * stages * rows * tile + 4 * 5 * lanes * group + 16 * stages
+    return LaunchPlan(lanes, cluster, tile, stages,
+                      -(-group * lanes // 32) * 32, smem)
+
+
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
@@ -75,10 +132,11 @@ def _nvcc() -> str:
                        f"{_CSRC} with the CUDA toolkit")
 
 
-def build_library(verbose: bool = False) -> str:
-    """Compile `csrc/pairwise.cu` into `build/` unless a library built from
-    the same source (by content hash) is there.  Returns its path."""
-    with open(_CSRC, "rb") as f:
+def build_library(verbose: bool = False, src: str = _CSRC) -> str:
+    """Compile a K1 source (`csrc/pairwise.cu` unless `src` names another)
+    into `build/` unless a library built from the same source (by content
+    hash) is there.  Returns its path."""
+    with open(src, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
     out = os.path.join(_BUILD_DIR, f"libngravs_pairwise_{digest}.so")
     if os.path.exists(out):
@@ -87,7 +145,7 @@ def build_library(verbose: bool = False) -> str:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), *_NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose else []) \
-        + ["-o", tmp, _CSRC]
+        + ["-o", tmp, src]
     try:
         r = subprocess.run(cmd, capture_output=True, text=True)
         if r.returncode != 0:
@@ -108,7 +166,7 @@ def _library():
         fn = lib.ngravs_pairwise
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-                       + [ctypes.POINTER(_LawTable)]
+                       + [ctypes.POINTER(_LawTable), ctypes.POINTER(_Plan)]
                        + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 4)
         _lib = lib
     return _lib
@@ -302,8 +360,9 @@ def pairwise_eval(targets: dict, spacked: torch.Tensor, n_src: torch.Tensor,
                   want_pot: bool = True, *, wiring=None,
                   box_size: float = 0.0, accumulator: bool | None = None,
                   treepm_asmth: float = 0.0):
-    """K1 wrapper: CUDA tensors launch `csrc/pairwise.cu`, CPU tensors take
-    `pairwise_eval_torch`.  Counts kernel launches in
+    """K1 wrapper: CUDA tensors launch `csrc/pairwise.cu` with
+    `launch_plan`'s shape, CPU tensors take `pairwise_eval_torch`.  Raises
+    on a launch the kernel or the card refuses.  Counts kernel launches in
     `pairwise_eval.launches`, and per instance (`instance_name`) in
     `pairwise_eval.counts`."""
     _check(targets, spacked, n_src)
@@ -324,11 +383,15 @@ def pairwise_eval(targets: dict, spacked: torch.Tensor, n_src: torch.Tensor,
     nb, _, s = spacked.shape
     bg = targets["x"].shape[0]
     group = bg // nb
+    plan = launch_plan(group, s, flags)
     for k in _T_DTYPES:
         if not targets[k].is_contiguous():
             raise ValueError(f"target column {k!r} must be contiguous")
     if not spacked.is_contiguous() or not n_src.is_contiguous():
         raise ValueError("spacked and n_src must be contiguous")
+    if spacked.data_ptr() % 16:
+        raise ValueError("spacked must be 16-byte aligned (the kernel copies "
+                         "its rows in bulk)")
     dev = spacked.device
     acc = torch.empty(bg, 3, dtype=torch.float32, device=dev)
     pot = (torch.empty(bg, dtype=torch.float32, device=dev) if want_pot
@@ -343,12 +406,15 @@ def pairwise_eval(targets: dict, spacked: torch.Tensor, n_src: torch.Tensor,
             targets["gid"].data_ptr(), spacked.data_ptr(), n_src.data_ptr(),
             nb, group, s, flags,
             ctypes.byref(table) if table is not None else None,
+            ctypes.byref(_Plan(plan.lanes, plan.cluster, plan.tile,
+                               plan.stages, plan.smem)),
             box_size, 1.0 / box_size if box_size > 0 else 0.0,
             0.5 / treepm_asmth if treepm_asmth > 0 else 0.0,
             acc.data_ptr(), pot.data_ptr() if want_pot else None,
             nia.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"pair kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"pair kernel launch failed: cudaError {err} "
+                           f"(plan {plan})")
     pairwise_eval.launches += 1
     name = instance_name(flags)
     pairwise_eval.counts[name] = pairwise_eval.counts.get(name, 0) + 1

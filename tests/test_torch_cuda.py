@@ -9,6 +9,8 @@ installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -108,12 +110,62 @@ def test_kernel_matches_twin(cuda, want_pot):
     assert torch.equal(nia.cpu(), nia_t)
 
 
+CUDA_ERROR_INVALID_VALUE = 1
+
+
+def _entry_point(cuda, group=G, s=S, flags=0, shift=0, table=None, **edit):
+    """The C entry point `ngravs_pairwise` called directly on one block of
+    `group` targets over `s` source rows (`shift` floats past an aligned
+    buffer), with `launch_plan(G, S, flags)`'s plan but for the fields in
+    `edit` (shared memory recomputed unless given); its cudaError."""
+    plan = tpw.launch_plan(G, S, flags)._replace(**edit)
+    if "smem" not in edit:
+        rows = 6 + bool(flags & tpw.F_MULTI) + bool(flags & tpw.F_COUNT)
+        plan = plan._replace(smem=4 * plan.stages * rows * plan.tile
+                             + 20 * plan.lanes * group + 16 * plan.stages)
+    cols = [torch.zeros(group, device=cuda,
+                        dtype=torch.int32 if k in ("grav", "gid")
+                        else torch.float32) for k in tpw._T_DTYPES]
+    base = torch.zeros(8 * s + 4, device=cuda)
+    sp = base[shift:shift + 8 * s]
+    n_src = torch.full((1, 1), s, dtype=torch.int32, device=cuda)
+    acc = torch.zeros(group, 3, device=cuda)
+    pot = torch.zeros(group, device=cuda)
+    nia = torch.zeros(group, dtype=torch.int32, device=cuda)
+    err = tpw._library().ngravs_pairwise(
+        *(c.data_ptr() for c in cols), sp.data_ptr(), n_src.data_ptr(), 1,
+        group, s, flags, table,
+        ctypes.byref(tpw._Plan(plan.lanes, plan.cluster, plan.tile,
+                               plan.stages, plan.smem)),
+        0.0, 0.0, 0.0, acc.data_ptr(), pot.data_ptr(), nia.data_ptr(),
+        torch.cuda.current_stream(cuda).cuda_stream)
+    torch.cuda.synchronize()
+    return err
+
+
 def test_kernel_reports_a_refused_launch(cuda):
     targets, sp, n_src = _inputs()
-    # all NB*G = 512 targets as one block: past the kernel's launch bound
+    # all NB*G = 512 targets as one block: past the kernel's group bound;
+    # the wrapper refuses it before any launch...
     one_block = {k: v.to(cuda) for k, v in targets.items()}
-    with pytest.raises(RuntimeError, match="cudaError"):
+    with pytest.raises(ValueError, match="launch_plan refuses"):
         pairwise_eval(one_block, sp[:1].to(cuda), n_src[1:2].to(cuda))
+    # ...and the kernel's entry point, handed it, returns the cudaError
+    assert _entry_point(cuda, group=NB * G) == CUDA_ERROR_INVALID_VALUE
+
+
+@pytest.mark.parametrize("args", [
+    dict(group=12), dict(group=0), dict(s=S + 2), dict(shift=1),
+    dict(smem=1 << 20), dict(lanes=0), dict(lanes=32), dict(cluster=3),
+    dict(cluster=16), dict(tile=126), dict(stages=1), dict(stages=5),
+    dict(flags=tpw.F_COUNT), dict(flags=tpw.F_MULTI)],
+    ids=lambda a: ",".join(f"{k}={v}" for k, v in a.items()))
+def test_kernel_entry_point_refuses(cuda, args):
+    """Every launch the C entry point does not take returns
+    cudaErrorInvalidValue before any launch; the plan it was derived from
+    runs."""
+    assert _entry_point(cuda) == 0
+    assert _entry_point(cuda, **args) == CUDA_ERROR_INVALID_VALUE
 
 
 def _clumps(n, seed=1):
@@ -181,8 +233,11 @@ K1_CASES = {
 
 def _k1_terms(wiring, targets, sp, n_src, box, asmth, use_count):
     """Per target: sums over valid pairs of |fac*d| per axis and |pot|."""
-    col = lambda k: targets[k].reshape(NB, G, 1)
-    live = torch.arange(S)[None, None, :] < n_src.reshape(NB, 1, 1)
+    nb, _, s = sp.shape
+    g = targets["x"].shape[0] // nb
+    col = lambda k: targets[k].reshape(nb, g, 1)
+    live = torch.arange(s, device=sp.device)[None, None, :] \
+        < n_src.reshape(nb, 1, 1)
     sgid = sp[:, IGID].view(torch.int32)[:, None, :]
     valid = live & (sgid != -1) & (sgid != col("gid")) & (col("gid") >= 0)
     d = [sp[:, None, a] - col(k) for a, k in enumerate("xyz")]
@@ -194,7 +249,9 @@ def _k1_terms(wiring, targets, sp, n_src, box, asmth, use_count):
     sg = sp[:, 6].view(torch.int32)[:, None, :]
     fac = torch.zeros_like(r)
     pot = torch.zeros_like(r)
-    for law, slots in wiring.unique_laws():
+    groups = wiring.unique_laws() if wiring is not None \
+        else [(Newtonian(), [(0, 0)])]
+    for law, slots in groups:
         mk = torch.zeros_like(valid)
         for i, j in slots:
             mk = mk | ((col("grav") == i) & (sg == j))
@@ -204,7 +261,7 @@ def _k1_terms(wiring, targets, sp, n_src, box, asmth, use_count):
         fac, pot = torch.where(mk, f, fac), torch.where(mk, p, pot)
     return torch.stack(
         [torch.where(valid, (fac * x).abs(), 0.).sum(-1) for x in d]
-        + [torch.where(valid, pot.abs(), 0.).sum(-1)], -1).reshape(NB * G, 4)
+        + [torch.where(valid, pot.abs(), 0.).sum(-1)], -1).reshape(nb * g, 4)
 
 
 @pytest.mark.parametrize("want_pot", [True, False])
@@ -300,3 +357,119 @@ def test_box_path_on_cuda_matches_cpu(cuda):
     assert torch.equal(sims[0].p.ti_endstep, sims[1].p.ti_endstep.cpu())
     assert pairwise_eval.launches > before
     assert any(k.startswith("K1bcd") for k in pairwise_eval.counts)
+
+
+# --------------------------------------------------------------------------
+# the kernel's launch shape: lanes per target, a cluster of CTAs per block
+# cutting its rows on multiples of 4, a ring of bulk-copied tiles, targets
+# sorted by gravity.  The n_src of each block sits on an edge of these
+# splits; two more blocks are all padding (targets, then sources).
+# --------------------------------------------------------------------------
+
+EDGE_CASES = {"newton": (None, 1, False, False, False), **K1_CASES}
+
+
+def _edge_case(case, s, group, seed=7):
+    """Inputs, wiring keywords and plan of one case: a block per n_src edge
+    (0, 1, 3, 4, 5, tile - 1, tile, tile + 1, one not divisible by C * 4,
+    S), a block of padding targets and one of padding sources."""
+    wname, ng, periodic, treepm, acc = EDGE_CASES[case]
+    w = None if wname is None else build_wiring(SimulationConfig(
+        n_gravs=ng, type_to_grav=(0, 0, 1, 0, 0, 0), wiring=wname,
+        box_size=BOX, periodic=periodic, pmgrid=32 if treepm else 0,
+        ngravs_accumulator=acc))
+    kw = dict(wiring=w, box_size=BOX if periodic else 0.0,
+              treepm_asmth=1.25 * BOX / 32 if treepm else 0.0)
+    plan = tpw.launch_plan(group, s, tpw.instance_flags(
+        w, kw["box_size"], None, kw["treepm_asmth"], True))
+    edges = [0, 1, 3, 4, 5, plan.tile - 1, plan.tile, plan.tile + 1,
+             4 * plan.cluster * (s // (8 * plan.cluster)) + 2, s, s, s]
+    nb = len(edges)
+    rng = np.random.default_rng(seed)
+    centre = rng.uniform(-20, 20, (nb, 1, 3))
+    tpos = (centre + rng.normal(0, 0.5, (nb, group, 3))).astype(np.float32)
+    tgid = np.arange(nb * group, dtype=np.int32).reshape(nb, group)
+    tgid[-2] = -1                                     # padding targets
+    sgid = rng.integers(0, nb * group, (nb, s)).astype(np.int32)
+    kind = rng.uniform(size=(nb, s))
+    sgid[kind < 0.1] = -1
+    sgid[(kind >= 0.1) & (kind < 0.3)] = -2
+    rows = np.nonzero((kind >= 0.3) & (kind < 0.4))
+    sgid[rows] = np.maximum(tgid[rows[0], rng.integers(0, group,
+                                                       rows[0].size)], 0)
+    sgid[-1] = -1                                     # padding sources
+    n_src = np.array(edges, np.int32)
+    sp = np.zeros((nb, 8, s), np.float32)
+    sp[:, 0:3] = (centre + rng.normal(0, 2.0, (nb, s, 3))).transpose(0, 2, 1)
+    sp[:, FMASS] = rng.uniform(0.5, 2.0, (nb, s))
+    sp[:, FSOFT] = rng.uniform(0.1, 1.0, (nb, s))
+    sp[:, 5] = rng.integers(1, 9, (nb, s)) if acc else 1.0
+    sp[:, 6] = rng.integers(0, ng, (nb, s)).astype(np.int32).view(np.float32)
+    sp[:, IGID] = sgid.view(np.float32)
+    sp[:, 0][np.arange(s)[None, :] >= n_src[:, None]] = np.nan
+    col = lambda a, dt=np.float32: torch.as_tensor(
+        np.ascontiguousarray(a, dt).reshape(nb * group, 1))
+    targets = dict(x=col(tpos[..., 0]), y=col(tpos[..., 1]),
+                   z=col(tpos[..., 2]),
+                   mass=col(rng.uniform(0.5, 2, (nb, group))),
+                   grav=col(rng.integers(0, ng, (nb, group)), np.int32),
+                   fsoft=col(rng.uniform(0.1, 1.0, (nb, group))),
+                   gid=col(tgid, np.int32))
+    return targets, torch.as_tensor(sp), \
+        torch.as_tensor(n_src.reshape(nb, 1)), kw, plan
+
+
+def _check_edges(cuda, case, s, group, want_pot):
+    targets, sp, n_src, kw, plan = _edge_case(case, s, group)
+    tg = {k: v.to(cuda) for k, v in targets.items()}
+    spg, nsg = sp.to(cuda), n_src.to(cuda)
+    a, p, n = pairwise_eval(tg, spg, nsg, want_pot, **kw)
+    at, pt, nt = pairwise_eval_torch(tg, spg, nsg, want_pot, **kw)
+    scale = _k1_terms(kw["wiring"], tg, spg, nsg, kw["box_size"],
+                      kw["treepm_asmth"], EDGE_CASES[case][4])
+    assert bool(((a - at).abs() <= RTOL_TERMS * scale[:, :3]).all())
+    if want_pot:
+        assert bool(((p - pt).abs() <= RTOL_TERMS * scale[:, 3]).all())
+    assert torch.equal(n, nt)
+    assert not bool(n.reshape(-1, group)[-2:].any())   # the padding blocks
+    assert not bool(a.reshape(-1, group, 3)[-2:].any())
+    return plan
+
+
+@pytest.mark.parametrize("s", [512, 4096])
+@pytest.mark.parametrize("want_pot", [True, False])
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_k1_split_edges_match_twin(cuda, case, want_pot, s):
+    plan = _check_edges(cuda, case, s, 64, want_pot)
+    if s == 4096:                        # the rows really split
+        assert plan.cluster > 1 and plan.tile < s // plan.cluster
+
+
+@pytest.mark.parametrize("case", ["newton", "three_species_periodic_treepm"])
+@pytest.mark.parametrize("group", [8, 64, 136, 256])
+def test_k1_group_sizes_match_twin(cuda, case, group):
+    plan = _check_edges(cuda, case, 4096, group, True)
+    # 136 x 2 lanes: the CTA is rounded up to 288 threads
+    assert group * plan.lanes <= plan.threads <= tpw.MAX_THREADS
+
+
+@pytest.mark.parametrize("case", ["newton", "three_species_periodic_treepm",
+                                  "bam_accumulator"])
+def test_k1_two_launches_bit_identical(cuda, case):
+    targets, sp, n_src, kw, _ = _edge_case(case, 4096, 64)
+    args = ({k: v.to(cuda) for k, v in targets.items()}, sp.to(cuda),
+            n_src.to(cuda), True)
+    first = pairwise_eval(*args, **kw)
+    second = pairwise_eval(*args, **kw)
+    for x, y in zip(first, second):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+def test_kernel_refuses_an_unaligned_source_buffer(cuda):
+    targets, sp, n_src = _inputs()
+    base = torch.zeros(NB * 8 * S + 1, device=cuda)
+    shifted = base[1:].view(NB, 8, S)
+    shifted.copy_(sp.to(cuda))
+    with pytest.raises(ValueError, match="aligned"):
+        pairwise_eval({k: v.to(cuda) for k, v in targets.items()}, shifted,
+                      n_src.to(cuda))

@@ -281,3 +281,84 @@ def test_law_table_and_instances():
     user = TWiring([[UserLaw()]])
     with pytest.raises(ValueError, match="no kind"):
         tpw.law_table(user)
+
+
+# --------------------------------------------------------------------------
+# the kernel's launch plan (ops/pairwise.py:launch_plan), on the CPU
+# --------------------------------------------------------------------------
+
+# every kernel instance: the count row only with the multi-law dispatch
+ALL_FLAGS = [f for f in range(32) if f & tpw.F_MULTI or not f & tpw.F_COUNT]
+
+
+def _rank_cuts(ns, cluster, s_cap):
+    """The rows of each CTA of a block's cluster, as csrc/pairwise.cu cuts
+    n_src (clamped to S): parts of ceil(ns / C) rounded up to 4 rows."""
+    ns = min(max(ns, 0), s_cap)
+    part = (-(-ns // cluster) + 3) // 4 * 4
+    return [(min(r * part, ns), min(min(r * part, ns) + part, ns))
+            for r in range(cluster)]
+
+
+@pytest.mark.parametrize("s_cap", [512, 4096, 32768])
+@pytest.mark.parametrize("group", [8, 64, 136, 256])
+def test_launch_plan_invariants(group, s_cap):
+    assert len(ALL_FLAGS) == 24
+    for flags in ALL_FLAGS:
+        p = tpw.launch_plan(group, s_cap, flags)
+        assert p.lanes in (1, 2, 4, 8, 16)
+        # the most lanes within 512 threads, rounded up to whole warps
+        assert group * p.lanes <= 512 < group * 2 * p.lanes or p.lanes == 16
+        assert p.threads % 32 == 0
+        assert group * p.lanes <= p.threads < group * p.lanes + 32
+        assert p.threads <= tpw.MAX_THREADS <= 1024
+        assert p.cluster in (1, 2, 4, 8)
+        assert p.tile % 4 == 0 and 0 < p.tile <= s_cap
+        assert 2 <= p.stages <= 4
+        rows = 6 + bool(flags & tpw.F_MULTI) + bool(flags & tpw.F_COUNT)
+        assert p.smem == (4 * p.stages * rows * p.tile
+                          + 20 * p.lanes * group + 16 * p.stages)
+        assert p.smem + tpw.STATIC_SMEM <= 232448
+        for ns in (0, 1, 3, 4, 5, p.tile - 1, p.tile, p.tile + 1,
+                   4 * p.cluster * (s_cap // (8 * p.cluster)) + 2, s_cap):
+            cuts = _rank_cuts(ns, p.cluster, s_cap)
+            assert cuts[0][0] == 0 and cuts[-1][1] == min(ns, s_cap)
+            assert all(a[1] == b[0] for a, b in zip(cuts, cuts[1:]))
+            # a CTA with rows starts on a multiple of 4 (an empty one
+            # issues no copy)
+            assert all(beg % 4 == 0 for beg, end in cuts if end > beg)
+            assert all(beg <= end for beg, end in cuts)
+            # a ragged tail rounded up to 4 rows stays inside the row
+            assert all((end + 3) // 4 * 4 <= s_cap for _, end in cuts)
+
+
+@pytest.mark.parametrize("group,s_cap", [(512, 4096), (12, 4096),
+                                         (0, 4096), (64, 4098)])
+def test_launch_plan_refuses(group, s_cap):
+    with pytest.raises(ValueError, match="launch_plan refuses"):
+        tpw.launch_plan(group, s_cap, 0)
+
+
+def test_cpu_twin_takes_any_group_and_s():
+    """The plan binds the kernel only: on the CPU a group of 12 and an S of
+    6 go to the twin."""
+    rng = np.random.default_rng(2)
+    nb, g, s = 2, 12, 6
+    col = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt) \
+        .reshape(nb * g, 1)
+    targets = dict(x=col(rng.normal(size=nb * g)),
+                   y=col(rng.normal(size=nb * g)),
+                   z=col(rng.normal(size=nb * g)),
+                   mass=col(np.ones(nb * g)),
+                   grav=col(np.zeros(nb * g), torch.int32),
+                   fsoft=col(np.full(nb * g, 0.1)),
+                   gid=col(np.arange(nb * g), torch.int32))
+    sp = np.zeros((nb, 8, s), np.float32)
+    sp[:, 0:3] = rng.normal(size=(nb, 3, s))
+    sp[:, 3] = 1.0
+    sp[:, 7] = np.full((nb, s), -2, np.int32).view(np.float32)
+    acc, _, nia = pairwise_eval(targets, torch.as_tensor(sp),
+                                torch.as_tensor([[s], [3]], dtype=torch.int32))
+    assert bool(torch.isfinite(acc).all())
+    assert nia.reshape(nb, g)[0].eq(s).all()
+    assert nia.reshape(nb, g)[1].eq(3).all()
