@@ -22,7 +22,7 @@ Phases (any failure raises and exits non-zero):
     particles of types 1-5 as BASELINE.md counts them, two Plummer spheres
     on a collision orbit, disk -> gravity 1) written in format 1 with its
     parameterfile, run as `read_parameter_file(..., direct_crossover=1000,
-    tree_depth=12)` -> `Simulation(cfg)` -> `run(max_steps=200)`; then one
+    tree_depth=12)` -> `Simulation(cfg)` -> `run(max_steps=100)`; then one
     full tree force pass checked against the direct sweep on the card (rms
     relative error < 5e-3), for finite forces and for the momentum rate
     |sum m a| / sum |m a| < 1e-3, timed with the kernel and with the twin
@@ -36,13 +36,33 @@ Phases (any failure raises and exits non-zero):
     wiring, written as a format-1 IC and parameterfile and run as
     `read_parameter_file(..., pmgrid=128, n_gravs=2,
     wiring="newton_yukawa", pm_interlace=True)` -> `Simulation(cfg)` ->
-    `run(max_steps=20)`: K1 (the TreePM multi-law instance) and PM must
+    `run(max_steps=10)`: K1 (the TreePM multi-law instance) and PM must
     run, forces finite; then one full TreePM pass (PM + short-range walk)
     on every particle, checked on 2,048 sampled targets against the
     periodic direct sum with the Ewald lattice correction (rms relative
     error < 2.5e-2), timed with the kernel and with the twin, PM alone
     timed, profiled; then K1 against the twin on that pass's largest
-    launch, as for slice 1.
+    launch, as for slice 1;
+ 6. slice 3, the gas box: the scheme of examples/cosmological_box.py:53-73
+    at the box path's cosmology and width, 2 x 64^3 particles, type 0 gas
+    (gravity 0, OmegaBaryon / Omega0 of the mass, IC u = 1 (km/s)^2)
+    and type 1 dark matter (gravity 1) half a cell off, DesNumNgb 33 +- 3,
+    run as `read_parameter_file(..., pmgrid=128, n_gravs=2,
+    wiring="newton_yukawa", pm_interlace=True)` -> `Simulation(cfg)` and
+    GAS_STEPS steps of `run(max_steps=1)`, each printed with its density
+    iterations, candidate cap and gravity, hydro and PM seconds; K1 (the
+    TreePM multi-law instance) must run.  Gates: the weighted neighbour
+    count of 99.9 % of the gas within DesNumNgb +- MaxNumNgbDeviation, the
+    median gas density within 5 % of the mean, the hydro momentum rate
+    below 1e-3 on each axis, entropy finite and positive, every gas
+    particle's signal velocity positive; the density and hydro passes of
+    64 sampled target blocks on the card and on the CPU from one tree and
+    state (candidate lists equal, sums within 1e-5 of each target's sum
+    of |terms|, the terms being the pass's own one candidate at a time);
+    `save_restart` and `resume` into a fresh `Simulation` give every array
+    back bit for bit.  Then one step profiled (K1's, the density passes'
+    and the hydro pass's shares of device time) and K1 against the twin
+    on that step's largest launch.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON object with every K1 instance's numbers; the last line is
@@ -66,15 +86,19 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B, G, S = 128, 64, 4096          # the fused walk's pair-kernel shapes
 RTOL_TERMS = 1e-5                # of each target's sum of |terms|
-MAIN_STEPS = 200                 # slice 1's path
+MAIN_STEPS = 100                 # slice 1's path
 # BASELINE.md:54 — GalaxyCollision.IC per-type counts (no gas)
 NPART = (0, 10000, 20000, 10000, 10000, 10000)
 # the box path
 BOX_NSIDE = 64                   # 2 x 64^3 particles
 BOX_SIZE = 50000.0               # kpc/h
 BOX_PMGRID = 128
-BOX_STEPS = 20
+BOX_STEPS = 10
 ORACLE_TARGETS = 2048
+# the gas path
+GAS_STEPS = 10
+GAS_SAMPLE_BLOCKS = 64
+DES_NGB, NGB_DEV = 33, 3
 RMS_TREE, RMS_TREEPM = 5e-3, 2.5e-2
 # synthetic K1 instances: label -> (wiring, n_gravs, periodic, TreePM,
 # accumulator); the synthetic box is SYN_BOX wide, TreePM at PMGRID 32
@@ -768,6 +792,310 @@ def box_path(dev, card: str):
 
 
 # --------------------------------------------------------------------------
+# phase 6: slice 3, the gas box (TreePM + SPH)
+# --------------------------------------------------------------------------
+
+def write_gas_box(run_dir: str, seed: int = 42) -> str:
+    """2 x BOX_NSIDE^3 particles on jittered lattices (jitter 2% of the
+    spacing; examples/cosmological_box.py:53-73): gas (type 0, gravity 0)
+    with OmegaBaryon / Omega0 of the box mass and IC internal energy u = 1
+    (km/s)^2, dark matter (type 1, gravity 1) half a cell off.  Masses
+    match Omega0; file velocities are Gadget's.  Returns the
+    parameterfile path."""
+    from ngravs_tpu_torch.config import SimulationConfig
+    from ngravs_tpu_torch.io.gadget_format import (SnapshotData,
+                                                   SnapshotHeader,
+                                                   write_snapshot)
+    from ngravs_tpu_torch.units import set_units
+    omega0, omega_b, box, ns = 0.3, 0.04, BOX_SIZE, BOX_NSIDE
+    units = set_units(SimulationConfig(comoving_integration=True))
+    rng = np.random.default_rng(seed)
+    g = (np.stack(np.meshgrid(*[np.arange(ns)] * 3, indexing="ij"), -1)
+         .reshape(-1, 3) + 0.5) / ns * box
+    n = len(g)
+    gas = np.mod(g + rng.normal(0, 0.02 * box / ns, g.shape), box)
+    dm = np.mod(g + rng.normal(0, 0.02 * box / ns, g.shape)
+                + 0.5 * box / ns, box)
+    m_tot = omega0 * 3 * units.hubble ** 2 / (8 * math.pi * units.G) \
+        * box ** 3
+    m_gas = omega_b / omega0 * m_tot / n
+    m_dm = (omega0 - omega_b) / omega0 * m_tot / n
+    h = SnapshotHeader()
+    h.npart = np.array([n, n, 0, 0, 0, 0], np.int32)
+    h.npart_total = h.npart.astype(np.uint32)
+    h.mass = np.array([m_gas, m_dm, 0.0, 0.0, 0.0, 0.0])
+    h.time, h.redshift, h.box_size = 0.1, 9.0, box
+    h.omega0, h.omega_lambda, h.hubble_param = omega0, 0.7, 0.7
+    ic = os.path.join(run_dir, "gas_box.IC")
+    write_snapshot(ic, SnapshotData(
+        header=h, pos=np.concatenate([gas, dm]).astype(np.float32),
+        vel=rng.normal(0, 1.0, (2 * n, 3)).astype(np.float32),
+        pid=np.arange(1, 2 * n + 1, dtype=np.uint32),
+        mass=np.repeat(np.array([m_gas, m_dm], np.float32), n),
+        ptype=np.repeat(np.array([0, 1], np.int32), n),
+        u=np.ones(n, np.float32)))
+    soft = box / ns / 30
+    return write_param(os.path.join(run_dir, "gas_box.param"), {
+        "InitCondFile": ic, "OutputDir": run_dir,
+        "SnapshotFileBase": "snapshot", "ICFormat": 1, "SnapFormat": 1,
+        "ComovingIntegrationOn": 1, "PeriodicBoundariesOn": 1,
+        "Omega0": omega0, "OmegaLambda": 0.7, "OmegaBaryon": omega_b,
+        "HubbleParam": 0.7, "BoxSize": box,
+        "TimeBegin": 0.1, "TimeMax": 1.0, "TimeBetSnapshot": 0.5,
+        "TimeOfFirstSnapshot": 0.5, "TimeBetStatistics": 0.05,
+        "ErrTolIntAccuracy": 0.025, "MaxSizeTimestep": 0.02,
+        "ErrTolTheta": 0.5, "TypeOfOpeningCriterion": 1,
+        "ErrTolForceAcc": 0.005, "TreeDomainUpdateFrequency": 0.1,
+        "DesNumNgb": DES_NGB, "MaxNumNgbDeviation": NGB_DEV,
+        "SofteningGas": soft, "SofteningHalo": soft,
+        "GravityGas": 0, "GravityHalo": 1, "GravityDisk": 0,
+        "GravityBulge": 0, "GravityStars": 0, "GravityBndry": 0,
+    })
+
+
+def pair_term_scales(fn, tgt, cand, per_target=()):
+    """Per target and output, the sum over candidates of |that pair's
+    term|: the pass `fn` on one candidate column at a time (the target
+    blocks repeated S times), so each term is the pass's own."""
+    from ngravs_tpu_torch.ops.sph import SphCandidates
+    nb, s = cand.shape
+    rep = lambda a: a.repeat_interleave(s, dim=0)
+    outs = fn(rep(tgt), SphCandidates(cand.reshape(nb * s, 1), None, None,
+                                      None), *[rep(a) for a in per_target])
+    return [o.reshape(nb, s, *o.shape[1:]).abs().sum(1) for o in outs]
+
+
+def check_sph_passes(sim, card: str):
+    """The density and hydro passes of GAS_SAMPLE_BLOCKS sampled target
+    blocks (all gas active) on the card and on the CPU from one tree and
+    state: candidate lists equal, each output within RTOL_TERMS of its
+    target's sum of |terms| (max_signal_vel, a maximum, within 1e-6
+    relative)."""
+    from ngravs_tpu_torch.ops import sph as S
+    from ngravs_tpu_torch.ops.tree import Octree
+    hs, cfg, depth = sim.hydro, sim.cfg, sim.solver.depth
+    tree = sim._sph_tree()
+    p = all_active(sim)
+    tgt_all = hs._blocks(tree, p, sim.ti_current, sim.n_gas)
+    live = torch.nonzero(tgt_all[:, 0] >= 0).squeeze(1).cpu().numpy()
+    rows = np.sort(np.random.default_rng(5).choice(
+        live, GAS_SAMPLE_BLOCKS, replace=False))
+    tgt = tgt_all[torch.as_tensor(rows, device=tgt_all.device)]
+    cpu_tree = Octree(*(t.cpu() for t in tree))
+    order = tree.order.long()
+    safe = tgt.clamp(min=0).long()
+    hsml_t = torch.where(tgt >= 0, sim.sph.hsml[order][safe], 0.0)
+    vel_all = sim.sph.vel_pred[order]
+    box = cfg.box_sizes
+    worst = {}
+
+    def gather(pairs, radius):
+        while True:
+            g = S.make_sph_gather(depth, cfg.tree_bucket_size, hs.cand_cap,
+                                  box_size=box, group_size=hs.group,
+                                  pairs=pairs)
+            on_card = g(tree, tgt, radius)
+            if not bool(on_card.overflow):
+                break
+            hs.cand_cap *= 2
+        on_cpu = g(cpu_tree, tgt.cpu(), radius.cpu())
+        for name in ("cand", "n_cand", "overflow", "max_cand"):
+            if not torch.equal(getattr(on_card, name).cpu(),
+                               getattr(on_cpu, name)):
+                raise AssertionError(f"SPH gather (pairs={pairs}): {name} "
+                                     "differs between the card and the CPU")
+        return on_card, on_cpu
+
+    def compare(label, got, want, scales, maxed=()):
+        for i, (g, w, sc) in enumerate(zip(got, want, scales)):
+            err = (g.cpu() - w).abs()
+            if i in maxed:
+                bad = err > 1e-6 * w.abs()
+            else:
+                bad = err > RTOL_TERMS * sc.cpu() + 1e-30
+            if bool(bad.any()):
+                raise AssertionError(f"{label} output {i}: card vs CPU off "
+                                     f"by {float(err.max())}")
+            worst[f"{label}[{i}]"] = float(err.max())
+
+    cd, cc = gather(False, hsml_t)
+    dens = lambda tr, vel: lambda tg, c, h, v: S.density_pass(
+        tr, tg, h, v, c, vel, box_size=box)
+    got = dens(tree, vel_all)(tgt, cd, hsml_t, vel_all[safe])
+    want = dens(cpu_tree, vel_all.cpu())(tgt.cpu(), cc, hsml_t.cpu(),
+                                         vel_all[safe].cpu())
+    compare("density", got, want, pair_term_scales(
+        dens(tree, vel_all), tgt, cd.cand, (hsml_t, vel_all[safe])))
+
+    fields, facs = hs.hydro_inputs(tree, p, sim.sph, float(sim.tbi),
+                                   sim.time)
+    hd, hc = gather(True, fields[0][safe])
+    hyd = lambda tr, fl: lambda tg, c: S.hydro_pass(
+        tr, tg, c, *fl, *facs, cfg.art_bulk_visc_const, box_size=box,
+        use_limiter=not cfg.no_viscosity_limiter)
+    got = hyd(tree, fields)(tgt, hd)
+    want = hyd(cpu_tree, [f.cpu() for f in fields])(tgt.cpu(), hc)
+    compare("hydro", got, want, pair_term_scales(hyd(tree, fields), tgt,
+                                                 hd.cand), maxed=(2,))
+    print(f"SPH passes [{card}]: {GAS_SAMPLE_BLOCKS} sampled blocks of "
+          f"{hs.group} targets, S = {cd.cand.shape[1]} (density, "
+          f"{int(cd.max_cand)} max) and {hd.cand.shape[1]} (hydro, "
+          f"{int(hd.max_cand)} max): candidate lists equal on the card and "
+          f"the CPU; max |card - CPU| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + f", each within {RTOL_TERMS:g} of its sum of |terms|",
+          flush=True)
+
+
+def profile_gas_step(sim, card: str, launched):
+    """One gas step under torch.profiler: CUDA kernels, the device's busy
+    share, and K1's, the density passes' and the hydro pass's shares of
+    device time (the `sph_density` / `sph_hydro` ranges).  The step's K1
+    launches are kept in `launched`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from ngravs_tpu_torch.ops.pairwise import pairwise_eval
+    sim.solver.pair_eval = record_launches(pairwise_eval, launched)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run(max_steps=1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    sim.solver.pair_eval = pairwise_eval
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    tot_us = lambda e: getattr(e, "device_time_total",
+                               getattr(e, "cuda_time_total", 0.0))
+    events = prof.key_averages()
+    kern = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(dev_us(e) for e in kern) / 1e3
+    k1_ms = sum(dev_us(e) for e in kern if "pairwise_kernel" in e.key) / 1e3
+    rng_ms = {k: sum(tot_us(e) for e in events if e.key == k) / 1e3
+              for k in ("sph_density", "sph_hydro")}
+    if busy_ms <= 0:
+        print(f"profiled gas step [{card}]: {wall_ms:.1f} ms wall; device "
+              "time not measured (the profiler recorded none)", flush=True)
+        return
+    shares = ", ".join(
+        f"{k} {v:.2f} ms ({v / busy_ms:.1%})" if v > 0
+        else f"{k} not measured (no device time under the range)"
+        for k, v in rng_ms.items())
+    print(f"profiled gas step [{card}]: {wall_ms:.1f} ms wall (profiler "
+          f"on), {sum(e.count for e in kern)} CUDA kernels, device busy "
+          f"{busy_ms:.2f} ms ({busy_ms / wall_ms:.1%} of the wall); K1 "
+          f"{k1_ms:.2f} ms ({k1_ms / busy_ms:.1%} of device time); "
+          f"{shares}", flush=True)
+
+
+def gas_path(dev, card: str):
+    """Slice 3's path; its K1 launch count and the inputs of every K1
+    launch of its profiled step."""
+    from ngravs_tpu_torch.config import read_parameter_file
+    from ngravs_tpu_torch.integrate.runner import Simulation
+    from ngravs_tpu_torch.ops import pairwise
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_gas")
+    os.makedirs(run_dir, exist_ok=True)
+    cfg = read_parameter_file(write_gas_box(run_dir), pmgrid=BOX_PMGRID,
+                              n_gravs=2, wiring="newton_yukawa",
+                              pm_interlace=True)
+    sim = Simulation(cfg, device=dev)
+    n, n_gas = sim.p.n, sim.n_gas
+    if n_gas != BOX_NSIDE ** 3 or n != 2 * n_gas \
+            or sim.solver.treepm is None or sim.solver.uses_direct(n):
+        raise AssertionError("the gas path must run TreePM + SPH at "
+                             "2 x 64^3")
+
+    pairwise.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GAS_STEPS):
+        before = dict(sim.cpu_timers, **sim.hydro.counts)
+        sim.run(max_steps=1)
+        d = {k: v - before[k] for k, v in dict(sim.cpu_timers,
+                                               **sim.hydro.counts).items()}
+        print(f"gas step {sim.step_count} [{card}]: a={sim.time:.6g}, "
+              f"{d['density_iters']} density iterations, cand_cap "
+              f"{sim.hydro.cand_cap}, gravity {d['gravity']:.2f} s, hydro "
+              f"{d['hydro']:.2f} s, PM {d['pm']:.2f} s, step "
+              f"{d['total']:.2f} s", flush=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(pairwise.pairwise_eval.counts)
+    launches = sum(counts.values())
+    if sum(v for k, v in counts.items() if k.startswith("K1bcd")) <= 0:
+        raise AssertionError(f"the gas path never launched the TreePM "
+                             f"multi-law K1 instance: {counts}")
+    print(f"gas path [{card}]: {GAS_STEPS} steps to a={sim.time:.6g}, "
+          f"{sim.num_force_updates} particle-steps in {wall:.2f} s = "
+          f"{sim.num_force_updates / wall:.1f} particle-steps/s, K1 "
+          f"launches {counts}, SPH passes {sim.hydro.counts}, PM window "
+          f"({sim.pm_ti_begstep}, {sim.pm_ti_endstep}); host seconds by "
+          "phase: " + ", ".join(f"{k} {v:.2f}"
+                                for k, v in sim.cpu_timers.items()),
+          flush=True)
+
+    # the gates on the state after the steps
+    s, gas = sim.sph, slice(0, n_gas)
+    wngb = s.num_ngb[gas]
+    in_window = float(((wngb - DES_NGB).abs() <= NGB_DEV).double().mean())
+    rho_mean = float(sim.p.mass[gas].double().sum()) / cfg.box_size ** 3
+    rho_med = float(s.density[gas].double().median())
+    ma = sim.p.mass[gas, None] * s.hydro_accel[gas]
+    mom = (ma.sum(0).abs() / ma.abs().sum(0).clamp(min=1e-30)).tolist()
+    ent, msv = s.entropy[gas], s.max_signal_vel[gas]
+    print(f"gas state [{card}]: weighted neighbours within {DES_NGB} +- "
+          f"{NGB_DEV} for {in_window:.5%} of the gas (range "
+          f"{float(wngb.min()):.3f}-{float(wngb.max()):.3f}); median "
+          f"density / mean {rho_med / rho_mean:.5f}; hydro momentum rate "
+          f"{', '.join(f'{m:.2e}' for m in mom)}; entropy "
+          f"{float(ent.min()):.4g}-{float(ent.max()):.4g}; signal velocity "
+          f"{float(msv.min()):.4g}-{float(msv.max()):.4g}", flush=True)
+    if not in_window >= 0.999:
+        raise AssertionError(f"neighbour counts in the window for only "
+                             f"{in_window:.4%} of the gas")
+    if not abs(rho_med / rho_mean - 1) < 0.05:
+        raise AssertionError(f"median gas density {rho_med} vs mean "
+                             f"{rho_mean}")
+    if not max(mom) < 1e-3:
+        raise AssertionError(f"hydro momentum rate {mom}")
+    if not (bool(torch.isfinite(ent).all()) and float(ent.min()) > 0):
+        raise AssertionError("entropy not finite and positive")
+    if not float(msv.min()) > 0:
+        raise AssertionError("a gas particle has no signal velocity")
+    for k in ("pos", "vel", "accel", "accel_pm"):
+        if not bool(torch.isfinite(getattr(sim.p, k)).all()):
+            raise AssertionError(f"non-finite {k} on the gas path")
+
+    check_sph_passes(sim, card)
+
+    # restart files: save after the steps, resume into a fresh Simulation
+    t0 = time.perf_counter()
+    path = sim.save_restart(os.path.join(run_dir, "gas_restart.npz"))
+    fresh = Simulation(cfg, device=dev, log_dir="")
+    fresh.resume(path)
+    for obj, other in ((sim.p, fresh.p), (sim.sph, fresh.sph)):
+        for k, v in vars(obj).items():
+            if not torch.equal(v, getattr(other, k)):
+                raise AssertionError(f"restart round trip changed {k}")
+    for k in ("ti_current", "pm_ti_begstep", "pm_ti_endstep",
+              "dt_displacement", "step_count", "num_force_updates"):
+        if getattr(sim, k) != getattr(fresh, k):
+            raise AssertionError(f"restart round trip changed {k}")
+    print(f"restart [{card}]: {os.path.getsize(path) / 2**20:.1f} MiB, "
+          f"saved and resumed into a fresh Simulation in "
+          f"{time.perf_counter() - t0:.1f} s; every array equal", flush=True)
+    fresh.close()
+    del fresh
+
+    launched = []
+    profile_gas_step(sim, card, launched)
+    sim.close()
+    return launches, launched
+
+
+# --------------------------------------------------------------------------
 
 def kernel_entry(name: str, launches: int, nums: dict, errs) -> dict:
     return {"name": name, "route": "cuda",
@@ -812,11 +1140,13 @@ def main() -> int:
         synthetic[case] = check_kernel(f"kernel (synthetic, {case})",
                                        *inputs, (False, True), kw)
 
-    # phases 4 and 5: the two main paths, each with its counts from 0
+    # phases 4-6: the three main paths, each with its counts from 0
     launches1, launched = galaxy_path(dev, card)
     galaxy_batch = check_largest_launch("kernel (main-path batch)", launched)
     launches2, launched = box_path(dev, card)
     box_batch = check_largest_launch("kernel (box-path batch)", launched)
+    launches3, launched = gas_path(dev, card)
+    gas_batch = check_largest_launch("kernel (gas-path batch)", launched)
     del launched
 
     entries = [kernel_entry("K1a (slice 1 path, open box, one Newton law)",
@@ -826,8 +1156,11 @@ def main() -> int:
                                for r in synthetic["K1a"].values()]),
                kernel_entry(f"{box_batch['name']} (box path, newton_yukawa "
                             "periodic TreePM)", launches2, box_batch,
-                            [box_batch["max_abs_err"]])]
-    path_counts = {box_batch["name"]: launches2}
+                            [box_batch["max_abs_err"]]),
+               kernel_entry(f"{gas_batch['name']} (gas path, newton_yukawa "
+                            "periodic TreePM + SPH)", launches3, gas_batch,
+                            [gas_batch["max_abs_err"]])]
+    path_counts = {box_batch["name"]: launches2 + launches3}
     for case, rep in synthetic.items():
         for want_pot, r in rep.items():
             entries.append(kernel_entry(

@@ -1,10 +1,10 @@
 """Global conservation diagnostics (port of
 `ngravs_tpu/diagnostics/energy.py`; reference global.c:22-198,
-run.c:413-433), for collisionless runs, Newtonian or comoving.
+run.c:413-433), Newtonian or comoving, with gas.
 
-`compute_global_quantities` returns per-type kinetic and potential
-energies, momentum, angular momentum, CM and mass, with velocities predicted
-from each particle's half-step midpoint to the current time.
+`compute_global_quantities` returns per-type kinetic, potential and
+internal energies, momentum, angular momentum, CM and mass, with velocities
+predicted from each particle's half-step midpoint to the current time.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from ..constants import N_TYPES
+from ..integrate.timeline import timebase_interval
 
 
 class SysState(NamedTuple):
@@ -33,15 +34,20 @@ class SysState(NamedTuple):
         return self.energy_kin + self.energy_pot + self.energy_int
 
 
-def predicted_velocities(p, tables, ti_current: int,
-                         pm_window=None) -> torch.Tensor:
+def predicted_velocities(p, tables, ti_current: int, pm_window=None,
+                         sph=None) -> torch.Tensor:
     """Velocities advanced from each particle's kick midpoint to ti_current
-    (global.c:52-80, io.c:209-240); the PM term over the PM window
+    (global.c:52-80, io.c:209-240): the short-range and, for gas, the hydro
+    term over the particle's own window; the PM term over the PM window
     `pm_window = (pm_ti_begstep, pm_ti_endstep)` when given, else over the
     particle's own window."""
     mid = (p.ti_begstep + p.ti_endstep) // 2
     dt_grav = tables.gravkick_factor(mid, ti_current)
     vel = p.vel + p.accel * dt_grav[:, None]
+    if sph is not None:
+        dt_hydro = tables.hydrokick_factor(mid, ti_current)
+        vel = vel + torch.where((p.ptype == 0)[:, None],
+                                sph.hydro_accel * dt_hydro[:, None], 0.0)
     if pm_window is None:
         return vel + p.accel_pm * dt_grav[:, None]
     pm_beg, pm_end = pm_window
@@ -52,25 +58,41 @@ def predicted_velocities(p, tables, ti_current: int,
 
 
 def compute_global_quantities(p, tables, ti_current: int, pm_window=None,
-                              atime: float = 1.0) -> SysState:
+                              atime: float = 1.0, sph=None, cfg=None,
+                              a3inv: float = 1.0) -> SysState:
     """The energy statistics; the potential energy carries a 1/a under
-    comoving integration (global.c:56)."""
-    vel = predicted_velocities(p, tables, ti_current, pm_window)
+    comoving integration (global.c:56).  With gas (`sph` and its `cfg`),
+    the thermal energy from the entropy predicted to now (global.c:77-99;
+    under ISOTHERM_EQS the entropy variable is u)."""
+    vel = predicted_velocities(p, tables, ti_current, pm_window, sph=sph)
     m = p.mass
     v2 = torch.sum(vel * vel, dim=-1)
     onehot = torch.nn.functional.one_hot(p.ptype.long(),
                                          N_TYPES).to(m.dtype)   # [N,6]
     ekin_i = 0.5 * m * v2
     epot_i = 0.5 * m * p.potential / atime
+    if sph is not None:
+        mid = (p.ti_begstep + p.ti_endstep) // 2
+        dt_entr = (ti_current - mid).to(torch.float32) \
+            * timebase_interval(cfg)
+        entr = sph.entropy + sph.dt_entropy * dt_entr
+        if cfg.isotherm_eqs:
+            egyspec = entr
+        else:
+            gm1 = cfg.gamma_minus1
+            egyspec = entr / gm1 \
+                * torch.clamp(sph.density * a3inv, min=1e-30) ** gm1
+        eint_i = torch.where(p.ptype == 0, m * egyspec, 0.0)
+    else:
+        eint_i = torch.zeros_like(m)
     mom = torch.sum(m[:, None] * vel, dim=0)
     ang = torch.sum(m[:, None] * torch.linalg.cross(p.pos, vel), dim=0)
     com = torch.sum(m[:, None] * p.pos, dim=0) / torch.sum(m)
-    zero = torch.zeros((), dtype=m.dtype, device=m.device)
     return SysState(
         energy_kin=torch.sum(ekin_i), energy_pot=torch.sum(epot_i),
-        energy_int=zero,
+        energy_int=torch.sum(eint_i),
         energy_kin_comp=onehot.T @ ekin_i, energy_pot_comp=onehot.T @ epot_i,
-        energy_int_comp=torch.zeros(N_TYPES, dtype=m.dtype, device=m.device),
+        energy_int_comp=onehot.T @ eint_i,
         momentum=torch.cat([mom, torch.linalg.norm(mom)[None]]),
         ang_momentum=torch.cat([ang, torch.linalg.norm(ang)[None]]),
         center_of_mass=com, mass_comp=onehot.T @ m)

@@ -1,19 +1,20 @@
 """KDK leapfrog on the integer timeline with individual power-of-two steps.
 
-Port of `ngravs_tpu/integrate/kdk.py` for collisionless runs, Newtonian or
-comoving:
-  * drift   — predict.c:31 `move_particles` (all particles), box wrap
-  * kick    — timestep.c:24 `advance_and_find_timesteps` (active particles)
+Port of `ngravs_tpu/integrate/kdk.py`, Newtonian or comoving, with gas:
+  * drift   — predict.c:31 `move_particles` (all particles), box wrap, and
+              the SPH prediction of predict.c:55-76 (`predict_sph`)
+  * kick    — timestep.c:24 `advance_and_find_timesteps` (active particles),
+              with the hydro kick, the predicted velocity and the entropy
+              update for gas
   * dt rule — timestep.c:427 `get_timestep`, criterion 0, with the
-              comoving prefactors of timestep.c:48-61
+              comoving prefactors of timestep.c:48-61 and the Courant limit
 
 Every operation is a masked update over whole tensors; the active set is
 `ti_endstep == ti_current`.  The integer-step bookkeeping (power-of-two
 floor, SYNCHRONIZATION alignment rule, midpoint kick windows) is the
 reference's.  Scalars are f32 0-d tensors computed in the JAX package's
-order, so both packages put a particle in the same bin.  Gas (SPH) and the
-FLEXSTEPS / PSEUDOSYMMETRIC variants wait for later slices (ROADMAP Queue 1
-items 16-17).
+order, so both packages put a particle in the same bin.  The FLEXSTEPS /
+PSEUDOSYMMETRIC variants wait for a later slice (ROADMAP Queue 1 item 17).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..constants import TIMEBASE
+from ..constants import SOFTFAC_SPLINE, TIMEBASE
 from .timeline import pow2_floor_i32, timebase_interval
 
 
@@ -55,24 +56,47 @@ def cosmo_factors(cfg, units, time_now, device="cpu") -> CosmoFactors:
 
 def compute_timestep_dt(cfg, p, dt_displacement: float,
                         soft_table: torch.Tensor,
-                        cf: CosmoFactors | None = None) -> torch.Tensor:
+                        cf: CosmoFactors | None = None,
+                        sph=None) -> torch.Tensor:
     """Per-particle dt from timestep criterion 0, before the MinSizeTimestep
     floor (timestep.c:427-530): dt = sqrt(2 eta atime eps_plummer /
-    |a_phys|) in dloga for comoving runs, clamped by MaxSizeTimestep and the
-    displacement constraint.  `cf` None means Newtonian factors."""
+    |a_phys|) in dloga for comoving runs, Courant-limited for gas, clamped
+    by MaxSizeTimestep and the displacement constraint.  `cf` None means
+    Newtonian factors."""
+    is_gas = p.ptype == 0
     if cf is None:
         acc = p.accel + p.accel_pm
+        if sph is not None:
+            acc = acc + torch.where(is_gas[:, None], sph.hydro_accel, 0.0)
         atime = hubble_a = None
     else:
         acc = p.accel * cf.fac1 + p.accel_pm * cf.fac1
+        if sph is not None:
+            acc = acc + torch.where(is_gas[:, None],
+                                    sph.hydro_accel * cf.fac2, 0.0)
         atime, hubble_a = cf.atime, cf.hubble_a
     ac = torch.sqrt(torch.sum(acc * acc, dim=-1))
     ac = torch.clamp(ac, min=1.0e-30) * cfg.ngravs_timestep_scale
     eps = soft_table[p.ptype.long()]
+    if cfg.adaptive_gravsoft_forgas and sph is not None:
+        # gas Plummer-equivalent = Hsml/2.8 (timestep.c:497-500)
+        eps = torch.where(is_gas, sph.hsml / torch.tensor(
+            SOFTFAC_SPLINE, dtype=torch.float32, device=p.device), eps)
     if atime is None:
         dt = torch.sqrt(2 * cfg.err_tol_int_accuracy * eps / ac)
     else:
         dt = torch.sqrt(2 * cfg.err_tol_int_accuracy * atime * eps / ac)
+    if sph is not None:
+        # SPH Courant criterion (timestep.c:507-518)
+        vmax = torch.clamp(sph.max_signal_vel, min=1e-30)
+        if atime is None:
+            dt_courant = 2 * cfg.courant_fac * sph.hsml / vmax
+        else:
+            dt_courant = 2 * cfg.courant_fac * atime * sph.hsml \
+                / (cf.fac3 * vmax)
+        dt = torch.where(is_gas & (sph.max_signal_vel > 0),
+                         torch.minimum(dt, dt_courant), dt)
+    if hubble_a is not None:
         dt = dt * hubble_a  # physical -> dloga
     dt = torch.clamp(dt, max=cfg.max_size_timestep)
     return torch.clamp(dt, max=dt_displacement)
@@ -80,10 +104,11 @@ def compute_timestep_dt(cfg, p, dt_displacement: float,
 
 def compute_timestep_ticks(cfg, p, dt_displacement: float,
                            soft_table: torch.Tensor,
-                           cf: CosmoFactors | None = None) -> torch.Tensor:
+                           cf: CosmoFactors | None = None,
+                           sph=None) -> torch.Tensor:
     """Per-particle integer step (power-of-two), floored to MinSizeTimestep
     then to a power of two on the integer timeline (timestep.c:427-560)."""
-    dt = compute_timestep_dt(cfg, p, dt_displacement, soft_table, cf)
+    dt = compute_timestep_dt(cfg, p, dt_displacement, soft_table, cf, sph)
     dt = torch.clamp(dt, min=cfg.min_size_timestep)
     # a true f32 division (a Python-scalar divisor may become a multiply by
     # its reciprocal, which can round differently at a bin edge)
@@ -94,12 +119,16 @@ def compute_timestep_ticks(cfg, p, dt_displacement: float,
 
 
 def kick(cfg, p, tables, ti_current: int, dt_displacement: float,
-         soft_table: torch.Tensor, cf: CosmoFactors | None = None):
+         soft_table: torch.Tensor, cf: CosmoFactors | None = None,
+         sph=None, min_egy_spec: float = 0.0):
     """advance_and_find_timesteps (timestep.c:24-408) for the active set,
-    SYNCHRONIZATION mode.  `p.accel` already includes G; the long-range
-    PM kick is the runner's (timestep.c:350-408)."""
+    SYNCHRONIZATION mode.  Returns (particles', sph').  `p.accel` already
+    includes G; the long-range PM kick is the runner's
+    (timestep.c:350-408).  `min_egy_spec` is the MinGasTemp floor on u
+    (units.min_egy_spec)."""
     active = p.ti_endstep == ti_current
-    ti_step = compute_timestep_ticks(cfg, p, dt_displacement, soft_table, cf)
+    ti_step = compute_timestep_ticks(cfg, p, dt_displacement, soft_table, cf,
+                                     sph)
 
     # SYNCHRONIZATION rule (timestep.c:240-246): a step may only grow if
     # the new end lands on an aligned tick
@@ -122,23 +151,100 @@ def kick(cfg, p, tables, ti_current: int, dt_displacement: float,
                               0.0)
     new_beg = torch.where(active, p.ti_endstep, p.ti_begstep)
     new_end = torch.where(active, p.ti_endstep + ti_step, p.ti_endstep)
-    return p.replace(vel=vel, ti_begstep=new_beg, ti_endstep=new_end)
+
+    if sph is not None:
+        is_act_gas = active & (p.ptype == 0)
+        dt_hydro = tables.hydrokick_factor(tstart, tend)
+        vel = vel + torch.where(is_act_gas[:, None],
+                                sph.hydro_accel * dt_hydro[:, None], 0.0)
+        # predicted velocity rewound to the step start (timestep.c:113-117)
+        dt_grav2 = tables.gravkick_factor(p.ti_endstep, tend)
+        dt_hydro2 = tables.hydrokick_factor(p.ti_endstep, tend)
+        vel_pred = vel - p.accel * dt_grav2[:, None] \
+            - sph.hydro_accel * dt_hydro2[:, None]
+        vel_pred = torch.where(is_act_gas[:, None], vel_pred, sph.vel_pred)
+        # entropy update with the -50% floor (timestep.c:123-126)
+        dt_entr = (tend - tstart).to(torch.float32) * timebase_interval(cfg)
+        d_ent = sph.dt_entropy * dt_entr
+        entropy = torch.where(d_ent > -0.5 * sph.entropy,
+                              sph.entropy + d_ent, sph.entropy * 0.5)
+        dt_entropy = sph.dt_entropy
+        if min_egy_spec > 0:
+            gm1 = cfg.gamma_minus1
+            rho = sph.density if cf is None else sph.density * cf.a3inv
+            min_entropy = min_egy_spec * gm1 \
+                / torch.clamp(rho, min=1e-30) ** gm1
+            floor_hit = entropy < min_entropy
+            entropy = torch.where(floor_hit, min_entropy, entropy)
+            dt_entropy = torch.where(floor_hit & is_act_gas, 0.0, dt_entropy)
+        entropy = torch.where(is_act_gas, entropy, sph.entropy)
+        sph = sph.replace(vel_pred=vel_pred, entropy=entropy,
+                          dt_entropy=dt_entropy)
+    return p.replace(vel=vel, ti_begstep=new_beg, ti_endstep=new_end), sph
+
+
+def _gravkick1(tables, t0: int, t1: int, dev):
+    it = lambda v: torch.tensor([v], dtype=torch.int32, device=dev)
+    return tables.gravkick_factor(it(t0), it(t1))[0]
 
 
 def pm_kick(p, tables, tstart: int, tend: int):
     """The long-range kick of ALL particles over the PM midpoint window
     (timestep.c:350-408)."""
-    dev = p.device
-    dt = tables.gravkick_factor(
-        torch.tensor([tstart], dtype=torch.int32, device=dev),
-        torch.tensor([tend], dtype=torch.int32, device=dev))[0]
-    return p.replace(vel=p.vel + p.accel_pm * dt)
+    return p.replace(vel=p.vel + p.accel_pm
+                     * _gravkick1(tables, tstart, tend, p.device))
+
+
+def pm_kick_vel_pred(p, sph, tables, ti_current: int, pm_beg: int,
+                     pm_end: int):
+    """The gas VelPred re-prediction after a PM kick (timestep.c:392-406):
+    VelPred = Vel + GravAccel dtA + HydroAccel dtH + GravPM dtB, dtB
+    rewinding to the midpoint of the new PM window [pm_beg, pm_end]."""
+    mid = (p.ti_begstep + p.ti_endstep) // 2
+    dt_a = tables.gravkick_factor(p.ti_begstep, ti_current) \
+        - tables.gravkick_factor(p.ti_begstep, mid)
+    dt_h = tables.hydrokick_factor(p.ti_begstep, ti_current) \
+        - tables.hydrokick_factor(p.ti_begstep, mid)
+    dt_b = -_gravkick1(tables, pm_beg, (pm_beg + pm_end) // 2, p.device)
+    vp = p.vel + p.accel * dt_a[:, None] \
+        + sph.hydro_accel * dt_h[:, None] + p.accel_pm * dt_b
+    return sph.replace(vel_pred=torch.where((p.ptype == 0)[:, None], vp,
+                                            sph.vel_pred))
 
 
 def drift(p, tables, ti0: int, ti1: int):
     """move_particles (predict.c:31-104): drift ALL particles ti0 -> ti1."""
     dd = tables.drift_factor(ti0, ti1).to(p.device)
     return p.replace(pos=p.pos + p.vel * dd)
+
+
+def predict_sph(cfg, p, sph, tables, ti0: int, ti1: int):
+    """The SPH part of move_particles (predict.c:55-76) for ti0 -> ti1:
+    predicted velocity, density and Hsml extrapolated by div v with the
+    MinGasHsml floor, and the pressure re-predicted from the entropy."""
+    dev = p.device
+    dt_grav = tables.gravkick_factor(ti0, ti1).to(dev)
+    dt_hydro = tables.hydrokick_factor(ti0, ti1).to(dev)
+    dt_drift = tables.drift_factor(ti0, ti1).to(dev)
+    # under PMGRID the prediction includes the long-range force
+    # (predict.c:58-61)
+    grav_acc = p.accel + p.accel_pm if cfg.pmgrid else p.accel
+    vel_pred = sph.vel_pred + grav_acc * dt_grav + sph.hydro_accel * dt_hydro
+    ex = sph.div_vel * dt_drift
+    density = sph.density * torch.exp(-ex)
+    hsml = sph.hsml * torch.exp(ex / 3.0)
+    # MinGasHsml floor (predict.c:69-71) on gas rows only (hsml > 0)
+    min_hsml = cfg.min_gas_hsml_fractional * cfg.softening[0] * 2.8
+    if min_hsml > 0:
+        hsml = torch.where(sph.hsml > 0, torch.clamp(hsml, min=min_hsml),
+                           hsml)
+    # entropy advanced from the particle's own step start to ti1
+    dt_entr = (torch.tensor(ti1, dtype=torch.float32, device=dev)
+               - p.ti_begstep.to(torch.float32)) * timebase_interval(cfg)
+    pressure = (sph.entropy + sph.dt_entropy * dt_entr) \
+        * density ** cfg.gamma
+    return sph.replace(vel_pred=vel_pred, density=density, hsml=hsml,
+                       pressure=pressure)
 
 
 def box_wrap(cfg, p):

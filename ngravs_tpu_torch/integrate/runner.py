@@ -9,14 +9,18 @@ reference run.c:20-141, begrun.c, init.c).
         energy statistics if due              # global.c
         kick active set, assign new steps     # timestep.c
 
-Collisionless runs stepped one sync point at a time (the general `step()`
-of the JAX package; it has no device-resident segments): open boxes with
-the tree or the direct sweep, and periodic TreePM boxes (PMGRID), Newtonian
-or comoving.  Under PMGRID a PM step forces a full sync (run.c:175-181),
-the long-range force is computed first (accel.c:34-42), and after the
-short-range kick every particle gets the long-range kick over the PM
-midpoint window (timestep.c:350-408).  Features of later slices raise
-NotImplementedError naming their ROADMAP item.
+Runs stepped one sync point at a time (the general `step()` of the JAX
+package; it has no device-resident segments): open boxes with the tree or
+the direct sweep, and periodic TreePM boxes (PMGRID), Newtonian or
+comoving, collisionless or with SPH gas.  Under PMGRID a PM step forces a
+full sync (run.c:175-181), the long-range force is computed first
+(accel.c:34-42), and after the short-range kick every particle gets the
+long-range kick over the PM midpoint window (timestep.c:350-408).  Gas
+runs the density and hydro passes (`ops/sph.py`) after gravity on the
+gravity walk's tree (accel.c:60-89).  Restart files (`io/restart.py`) are
+written on the stop file, at 85% of TimeLimitCPU, every
+CpuTimeBetRestartFile seconds and on a crash.  Features of later slices
+raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -37,10 +41,12 @@ from ..io.gadget_format import (SnapshotData, SnapshotHeader, read_snapshot,
                                 write_snapshot)
 from ..models.wiring import build_wiring
 from ..ops.solver import GravitySolver
-from ..particles import Particles
+from ..ops.sph import HydroSolver
+from ..ops.tree import build_tree
+from ..particles import Particles, SphState
 from ..units import set_units
 from .kdk import box_wrap, compute_timestep_dt, cosmo_factors, drift, kick, \
-    pm_kick
+    pm_kick, pm_kick_vel_pred, predict_sph
 from .timeline import pm_window, ti_to_time, time_to_ti, timebase_interval
 
 
@@ -49,7 +55,7 @@ def _check_supported(cfg: SimulationConfig, segment_steps: int):
     todo = [
         (segment_steps != 1, "segment_steps > 1 (device-resident segments)",
          "Queue 1 item 10a"),
-        (cfg.periodic and not cfg.pmgrid,
+        (cfg.periodic and not cfg.pmgrid and not cfg.no_gravity,
          "the periodic pure-tree run (Ewald lattice pass)",
          "Queue 1 item 13"),
         (cfg.pmgrid and not cfg.periodic, "non-periodic PM",
@@ -57,7 +63,8 @@ def _check_supported(cfg: SimulationConfig, segment_steps: int):
         (cfg.force_test > 0, "FORCETEST", "Queue 1 item 12"),
         (cfg.flexsteps or cfg.pseudosymmetric or cfg.make_glass,
          "FLEXSTEPS / PSEUDOSYMMETRIC / MAKEGLASS", "Queue 1 item 17"),
-        (cfg.output_list_on, "OutputListOn", "Queue 1 item 10"),
+        (cfg.twodims or (cfg.long_x, cfg.long_y, cfg.long_z) != (1, 1, 1),
+         "TWODIMS / LONG_X/Y/Z", "Queue 1 item 17"),
     ]
     for bad, what, item in todo:
         if bad:
@@ -68,11 +75,14 @@ def _check_supported(cfg: SimulationConfig, segment_steps: int):
 
 def build_snapshot_data(cfg, tables, tbi: float, p: Particles,
                         ti_current: int, time_now: float,
-                        pm_window=None) -> SnapshotData:
+                        pm_window=None, sph: SphState | None = None,
+                        n_gas: int = 0, units=None,
+                        entropy_is_u: bool = False) -> SnapshotData:
     """A SnapshotData from integrator state (fill_write_buffer,
     io.c:129-351): velocities predicted to now, per-type constant masses
-    lifted into the header table, comoving->physical output factors."""
-    vel = predicted_velocities(p, tables, ti_current, pm_window)
+    lifted into the header table, entropy converted to internal energy,
+    comoving->physical output factors.  Gas comes first (type order)."""
+    vel = predicted_velocities(p, tables, ti_current, pm_window, sph=sph)
     if cfg.comoving_integration:
         # file vel = internal vel / a^(3/2) (io.c:239-240)
         vel = vel * time_now ** -1.5
@@ -97,11 +107,37 @@ def build_snapshot_data(cfg, tables, tbi: float, p: Particles,
     data = SnapshotData(header=h, pos=pos, vel=vel, pid=pid.astype(np.uint32),
                         mass=mass.copy(), ptype=ptype,
                         pot=pot if cfg.output_potential else None)
+    a3inv = fac1 = fac2 = 1.0
+    if cfg.comoving_integration:
+        # comoving->physical factors for output (io.c:149-156)
+        a3inv = 1.0 / time_now ** 3
+        fac1 = 1.0 / time_now ** 2
+        fac2 = 1.0 / time_now ** (3 * cfg.gamma - 2)
+    gas = sph is not None and n_gas > 0
+    if gas:
+        ent, rho, hs, dent = (t.cpu().numpy()[:n_gas] for t in (
+            sph.entropy, sph.density, sph.hsml, sph.dt_entropy))
+        if entropy_is_u or cfg.isotherm_eqs:
+            # density has not run yet, or IsothermEqs: the entropy field
+            # holds u directly (io.c:270-271)
+            data.u = ent
+        else:
+            # entropy -> specific internal energy (io.c:266-279)
+            data.u = np.maximum(
+                units.min_egy_spec,
+                ent / cfg.gamma_minus1
+                * np.maximum(rho * a3inv, 1e-37) ** cfg.gamma_minus1
+            ).astype(np.float32)
+        data.rho, data.hsml = rho, hs
+        if cfg.output_change_of_entropy:
+            data.dtentr = dent
     if cfg.output_acceleration:
-        # physical acceleration fac1 * (tree + PM) (io.c:311-330)
-        fac1 = 1.0 / time_now ** 2 if cfg.comoving_integration else 1.0
-        data.accel = (fac1 * (p.accel + p.accel_pm).cpu().numpy()) \
-            .astype(np.float32)
+        # physical acceleration fac1 (tree + PM) + fac2 hydro for gas
+        # (io.c:311-330)
+        acc = fac1 * (p.accel + p.accel_pm).cpu().numpy()
+        if gas:
+            acc[:n_gas] += fac2 * sph.hydro_accel.cpu().numpy()[:n_gas]
+        data.accel = acc.astype(np.float32)
     if cfg.output_timestep:
         # (Ti_endstep - Ti_begstep) * Timebase_interval (io.c:343-351)
         data.tstp = ((p.ti_endstep - p.ti_begstep).cpu().numpy()
@@ -109,21 +145,45 @@ def build_snapshot_data(cfg, tables, tbi: float, p: Particles,
     return data
 
 
-def load_initial_conditions(cfg, ic_path=None, device="cpu") -> Particles:
-    """read_ic (read_ic.c:31-146) for collisionless ICs."""
+def load_initial_conditions(cfg, units, ic_path=None, device="cpu"):
+    """read_ic (read_ic.c:31-146): load ICs into (Particles, SphState or
+    None), with InitGasTemp defaulting and the entropy floor.  The SPH
+    entropy field holds the IC internal energy u; the runner converts
+    u -> A at the first force computation (init.c:170-174)."""
     snap = read_snapshot(ic_path or cfg.init_cond_file,
                          expect_format=cfg.ic_format or None)
-    if int(snap.header.npart[0]) > 0:
-        raise NotImplementedError(
-            "gas (SPH) is not yet ported to ngravs_tpu_torch "
-            "(ROADMAP Queue 1 item 16)")
     vel = snap.vel
     if cfg.comoving_integration:
         # comoving velocity variable: internal vel = file vel * a^(3/2)
         # (init.c:95-101)
         vel = np.asarray(vel) * cfg.time_begin ** 1.5
-    return Particles.create(snap.pos, vel, snap.mass, snap.pid,
-                            snap.ptype, cfg.type_to_grav, device=device)
+    particles = Particles.create(snap.pos, vel, snap.mass, snap.pid,
+                                 snap.ptype, cfg.type_to_grav, device=device)
+    ngas = int(snap.header.npart[0])
+    if ngas == 0:
+        return particles, None
+    u_ic = np.zeros(ngas, np.float32) if snap.u is None \
+        else np.asarray(snap.u, np.float32).copy()
+    if cfg.init_gas_temp > 0:
+        # read_ic.c:114-143: gas with u == 0 starts at InitGasTemp; mean
+        # molecular weight assumes full ionization above 1e4 K, neutral
+        # below.  Under IsothermEqs u = kT/mp with no 1/(gamma-1) or mu
+        # (read_ic.c:121-132)
+        u0 = ((C.BOLTZMANN / C.PROTONMASS) * cfg.init_gas_temp
+              / units.unit_energy_in_cgs * units.unit_mass_in_g)
+        if not cfg.isotherm_eqs:
+            yhe = (1 - C.HYDROGEN_MASSFRAC) / (4 * C.HYDROGEN_MASSFRAC)
+            if cfg.init_gas_temp > 1e4:
+                mu = (1 + 4 * yhe) / (1 + 3 * yhe + 1)
+            else:
+                mu = (1 + 4 * yhe) / (1 + yhe)
+            u0 = u0 / (cfg.gamma_minus1 * mu)
+        u_ic = np.where(u_ic == 0, np.float32(u0), u_ic)
+    # entropy floor (read_ic.c:145-146)
+    u_ic = np.maximum(u_ic, units.min_egy_spec)
+    sph = SphState.zeros(particles.n, device)
+    sph.entropy[:ngas] = torch.as_tensor(u_ic, dtype=torch.float32)
+    return particles, sph
 
 
 def write_snapshot_files(cfg, path, data):
@@ -151,12 +211,15 @@ class Simulation:
 
     `device`: where the run lives; None means that of `particles`, else the
     CUDA card, and raises without one: the CPU is used only when asked for
-    (`device="cpu"`).  `log_dir=""` runs headless (no log files); None uses
-    cfg.output_dir, or a scratch directory."""
+    (`device="cpu"`).  `sph`: the gas state when `particles` are given (its
+    entropy field holds u until the first force pass).  `log_dir=""` runs
+    headless (no log files); None uses cfg.output_dir, or a scratch
+    directory."""
 
     def __init__(self, cfg: SimulationConfig, particles: Particles | None = None,
-                 ic_path: str | None = None, log_dir: str | None = None,
-                 segment_steps: int = 1, device=None):
+                 sph: SphState | None = None, ic_path: str | None = None,
+                 log_dir: str | None = None, segment_steps: int = 1,
+                 device=None):
         _check_supported(cfg, segment_steps)
         if device is None:
             device = particles.device if particles is not None else "cuda"
@@ -179,13 +242,16 @@ class Simulation:
         self._soft_t = torch.as_tensor(self.soft_table, device=self.device)
 
         if particles is None:
-            particles = load_initial_conditions(cfg, ic_path=ic_path,
-                                                device=self.device)
-        if bool(torch.any(particles.ptype == 0)):
-            raise NotImplementedError(
-                "gas (SPH) is not yet ported to ngravs_tpu_torch "
-                "(ROADMAP Queue 1 item 16)")
+            particles, sph_ic = load_initial_conditions(
+                cfg, self.units, ic_path=ic_path, device=self.device)
+            if sph is None:
+                sph = sph_ic
         self.p = particles
+        self.sph = sph.to(self.device) if sph is not None else None
+        self.n_gas = int(torch.sum(self.p.ptype == 0)) \
+            if self.sph is not None else 0
+        if self.n_gas > 0 and float(torch.amax(self.sph.hsml)) == 0.0:
+            self._initial_hsml()
         if cfg.comoving_integration and cfg.periodic and cfg.box_size > 0:
             self._check_omega()
 
@@ -200,7 +266,8 @@ class Simulation:
         self.step_count = 0
         self.snapshot_count = 0
         self._forces_bootstrapped = False
-        self._restart_noted = False
+        # the IC's entropy field holds u until the first density pass
+        self._entropy_is_u = self.n_gas > 0
 
         # log files (begrun.c:202-255)
         self.log_dir = log_dir if log_dir is not None else cfg.output_dir
@@ -226,6 +293,44 @@ class Simulation:
         self.solver = GravitySolver(cfg, self.wiring, self.force_soft,
                                     self.units.G, hubble=self.units.hubble,
                                     device=self.device)
+        self.hydro = HydroSolver(cfg, self.units) \
+            if self.sph is not None else None
+
+        if cfg.adaptive_gravsoft_forgas and self.n_gas > 0:
+            # the gas gravitational softening is Hsml, so converge the
+            # smoothing lengths BEFORE the first force computation, like
+            # init()'s setup_smoothinglengths -> density() (init.c:159-218)
+            self.sph = self.hydro.density(
+                self._sph_tree(), self.p, self.sph, self.ti_current,
+                self.n_gas, self.solver.depth, float(self.tbi))
+
+    def _initial_hsml(self):
+        """setup_smoothinglengths (init.c:218): the first Hsml guess from
+        the mean gas interparticle separation (the box volume when
+        periodic, else the gas extent)."""
+        cfg = self.cfg
+        gas = self.p.ptype == 0
+        gpos = self.p.pos.cpu().numpy()[gas.cpu().numpy()]
+        ext = gpos.max(0) - gpos.min(0)
+        vol = float(np.prod(ext) + 1e-30)
+        if cfg.periodic and cfg.box_size > 0:
+            bx, by, bz = cfg.box_sizes
+            vol = bx * by * bz
+        h0 = (3 * vol * cfg.des_num_ngb
+              / (4 * math.pi * max(self.n_gas, 1))) ** (1.0 / 3)
+        self.sph = self.sph.replace(
+            hsml=torch.where(gas, float(np.float32(h0)), 0.0))
+
+    def _sph_tree(self):
+        """An octree for the SPH passes when gravity built none (the direct
+        sweep, NOGRAVITY, the adaptive-softening set-up)."""
+        fsoft = torch.as_tensor(self.force_soft,
+                                device=self.device)[self.p.ptype.long()]
+        return build_tree(self.p.pos, self.p.mass, self.p.grav, fsoft,
+                          self.p.old_acc, self.sph.hsml,
+                          depth=self.solver.depth, n_gravs=self.cfg.n_gravs,
+                          bucket=self.cfg.tree_bucket_size,
+                          box_size=self.cfg.tree_box_size)
 
     def _check_omega(self):
         """check_omega (init.c:181-208): the box mass must match Omega0."""
@@ -251,6 +356,9 @@ class Simulation:
         return cosmo_factors(self.cfg, self.units, self.time, self.device)
 
     def _drift_to(self, ti1: int):
+        if self.sph is not None:
+            self.sph = predict_sph(self.cfg, self.p, self.sph, self.tables,
+                                   self.ti_current, ti1)
         self.p = box_wrap(self.cfg, drift(self.p, self.tables,
                                           self.ti_current, ti1))
 
@@ -292,6 +400,13 @@ class Simulation:
     # ------------------------------------------------------------------
     def _first_output_time(self):
         cfg = self.cfg
+        if cfg.output_list_on and cfg.output_list_filename:
+            # OutputListOn: the snapshot times of OutputListFilename
+            with open(cfg.output_list_filename) as f:
+                self._output_list = sorted(float(x) for x in f.read().split())
+            return next((t for t in self._output_list if t > cfg.time_begin),
+                        float("inf"))
+        self._output_list = None
         t = cfg.time_of_first_snapshot
         while t <= cfg.time_begin:
             if cfg.time_bet_snapshot <= 0:
@@ -300,7 +415,12 @@ class Simulation:
         return t
 
     def _advance_output_time(self):
-        self._next_output += self.cfg.time_bet_snapshot
+        if self._output_list is not None:
+            self._next_output = next(
+                (t for t in self._output_list if t > self._next_output),
+                float("inf"))
+        else:
+            self._next_output += self.cfg.time_bet_snapshot
 
     def time_at(self, ti) -> float:
         return float(ti_to_time(self.cfg, ti))
@@ -320,18 +440,26 @@ class Simulation:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def compute_forces(self):
-        """compute_accelerations (accel.c:24) for the active set, gravity
-        part."""
+    def compute_forces(self, full: bool = False):
+        """compute_accelerations (accel.c:24) for the active set: gravity,
+        then the SPH density and hydro passes for active gas.  `full`
+        refreshes the long-range PM force too (long_range_force,
+        accel.c:34-42), as standalone full-force callers need."""
         t0 = _time.time()
+        if full and self.cfg.pmgrid and not self.cfg.no_gravity:
+            self.p = self.p.replace(accel_pm=self.solver.pm_forces(self.p))
         n_active, _ = self._active_info()
+        if full:
+            n_active = self.p.n
         if n_active == 0:
             return
+        hsml = self.sph.hsml if self.sph is not None else None
+        tree = None
         n_ia = 0
         act = self.p.ti_endstep == self.ti_current
         if self.cfg.no_gravity:
             # NOGRAVITY (gravtree.c:368-374): active particles get zero
-            # gravitational acceleration
+            # gravitational acceleration; SPH still runs below
             self.p = self.p.replace(
                 accel=torch.where(act[:, None], 0.0, self.p.accel),
                 potential=torch.where(act, 0.0, self.p.potential))
@@ -351,10 +479,11 @@ class Simulation:
                 # relative criterion needs OldAcc: bootstrap with the
                 # geometric criterion, then recompute (accel.c:48-52)
                 p_solve, _, _ = self.solver.compute(
-                    p_solve, self.ti_current, n_active, opening="bh")
+                    p_solve, self.ti_current, n_active, opening="bh",
+                    hsml=hsml)
             self._forces_bootstrapped = True
-            p_solve, n_ia, _ = self.solver.compute(p_solve, self.ti_current,
-                                                   n_active)
+            p_solve, n_ia, tree = self.solver.compute(
+                p_solve, self.ti_current, n_active, hsml=hsml)
             if saved_endstep is not None:
                 p_solve = p_solve.replace(ti_endstep=saved_endstep)
             self.p = p_solve
@@ -362,11 +491,50 @@ class Simulation:
         self.num_force_updates += n_active
         dt = _time.time() - t0
         self.cpu_timers["gravity"] += dt
+
+        # --- SPH: density + smoothing lengths, then hydro (accel.c:60-89) ---
+        if self.n_gas > 0:
+            t1 = _time.time()
+            n_gas_act = int(torch.sum(act & (self.p.ptype == 0)))
+            if n_gas_act > 0:
+                self._sph_forces(tree, n_gas_act)
+            self._sync()
+            self.cpu_timers["hydro"] += _time.time() - t1
         if "timings" in self._logs and dt > 0:
             self._logs["timings"].write(
                 f"Step {self.step_count}: forces for {n_active} particles "
                 f"in {dt:.4f}s  part/sec={n_active / dt:.5g}  "
                 f"ia/part={n_ia / max(n_active, 1):.1f}\n")
+
+    def _sph_forces(self, tree, n_gas_act: int):
+        """density() then hydro_force() for the active gas on `tree` (the
+        gravity walk's, else one built here)."""
+        cfg, depth, tbi = self.cfg, self.solver.depth, float(self.tbi)
+        if tree is None:
+            tree = self._sph_tree()
+        self.sph = self.hydro.density(tree, self.p, self.sph, self.ti_current,
+                                      n_gas_act, depth, tbi)
+        if self._entropy_is_u:
+            # the IC carried internal energy u: convert to entropy
+            # A = (gamma-1) u / rho^(gamma-1) (init.c:170-174).  Under
+            # IsothermEqs the entropy variable stays u and P = u rho
+            gm1 = cfg.gamma_minus1
+            a3inv = 1.0 / self.time ** 3 if cfg.comoving_integration else 1.0
+            s = self.sph
+            if cfg.isotherm_eqs:
+                ent = s.entropy
+            else:
+                ent = gm1 * s.entropy \
+                    / torch.clamp(s.density * a3inv, min=1e-37) ** gm1
+            gasm = self.p.ptype == 0
+            self.sph = s.replace(
+                entropy=torch.where(gasm, ent, s.entropy),
+                pressure=torch.where(
+                    gasm, ent * torch.clamp(s.density, min=1e-37)
+                    ** cfg.gamma, s.pressure))
+            self._entropy_is_u = False
+        self.sph = self.hydro.hydro(tree, self.p, self.sph, self.ti_current,
+                                    n_gas_act, depth, tbi, self.time)
 
     def write_snapshot_now(self, path=None):
         """savepositions (io.c:33): snapshot with velocities predicted to now."""
@@ -376,7 +544,10 @@ class Simulation:
             self.update_full_potential()
         data = build_snapshot_data(cfg, self.tables, float(self.tbi), self.p,
                                    self.ti_current, self.time,
-                                   pm_window=self._pm_window_now())
+                                   pm_window=self._pm_window_now(),
+                                   sph=self.sph, n_gas=self.n_gas,
+                                   units=self.units,
+                                   entropy_is_u=self._entropy_is_u)
         if path is None:
             out_dir = self.log_dir or cfg.output_dir
             if not out_dir:
@@ -399,8 +570,9 @@ class Simulation:
             return
         p_all = self.p.replace(ti_endstep=torch.full_like(
             self.p.ti_endstep, self.ti_current))
-        p2, _, _ = self.solver.compute(p_all, self.ti_current, self.p.n,
-                                       want_pot=True)
+        p2, _, _ = self.solver.compute(
+            p_all, self.ti_current, self.p.n, want_pot=True,
+            hsml=self.sph.hsml if self.sph is not None else None)
         pot = p2.potential
         if self.cfg.pmgrid:
             # long-range PM potential (potential.c:268-306)
@@ -413,10 +585,12 @@ class Simulation:
             t0 = _time.time()
             self.update_full_potential()
             self.cpu_timers["potential"] += _time.time() - t0
+        com = self.cfg.comoving_integration
         s = compute_global_quantities(
             self.p, self.tables, self.ti_current,
             pm_window=self._pm_window_now(),
-            atime=self.time if self.cfg.comoving_integration else 1.0)
+            atime=self.time if com else 1.0, sph=self.sph, cfg=self.cfg,
+            a3inv=1.0 / self.time ** 3 if com else 1.0)
         if "energy" in self._logs:
             self._logs["energy"].write(format_energy_line(self.time, s) + "\n")
             self._logs["energy"].flush()
@@ -485,7 +659,7 @@ class Simulation:
             # stop when a particle wants dt below MinSizeTimestep
             # (timestep.c:531-556), unless NoStopBelowMinTimestep
             dtp = compute_timestep_dt(cfg, self.p, self.dt_displacement,
-                                      self._soft_t, cf)
+                                      self._soft_t, cf, self.sph)
             act = self.p.ti_endstep == self.ti_current
             mn = float(torch.amin(torch.where(act, dtp, math.inf)))
             if mn < cfg.min_size_timestep:
@@ -493,8 +667,9 @@ class Simulation:
                     f"timestep wants to be {mn:g}, below MinSizeTimestep="
                     f"{cfg.min_size_timestep:g} (timestep.c:531-556); set "
                     "NoStopBelowMinTimestep 1 to clamp instead")
-        self.p = kick(cfg, self.p, self.tables, self.ti_current,
-                      self.dt_displacement, self._soft_t, cf)
+        self.p, self.sph = kick(cfg, self.p, self.tables, self.ti_current,
+                                self.dt_displacement, self._soft_t, cf,
+                                self.sph, self.units.min_egy_spec)
         if pm_step:
             # the long-range kick over the PM midpoint window
             # (timestep.c:350-408); the step in ticks from the
@@ -504,6 +679,10 @@ class Simulation:
                           self.pm_ti_endstep,
                           int(self.dt_displacement / self.tbi))
             self.p = pm_kick(self.p, self.tables, tstart, tend)
+            if self.sph is not None:
+                self.sph = pm_kick_vel_pred(
+                    self.p, self.sph, self.tables, self.ti_current,
+                    self.pm_ti_begstep, self.pm_ti_endstep)
         self._sync()
         self.cpu_timers["timeline"] += _time.time() - t0
 
@@ -517,6 +696,17 @@ class Simulation:
                 f"{c['domain']:.2f} {c['potential']:.2f} {c['drift']:.2f} "
                 f"{c['timeline']:.2f} {c['snapshot']:.2f}\n")
 
+    # ------------------------------------------------------------------
+    def save_restart(self, path: str | None = None) -> str:
+        """Write a restart checkpoint (restart(0), restart.c:35)."""
+        from ..io.restart import save_restart
+        return save_restart(self, path)
+
+    def resume(self, path: str | None = None):
+        """Resume from a restart checkpoint (RestartFlag=1)."""
+        from ..io.restart import load_restart
+        return load_restart(self, path)
+
     def _interrupt_requested(self) -> str | None:
         """stop-file and CPU-limit checks (run.c:67-103)."""
         if self.log_dir and os.path.exists(os.path.join(self.log_dir, "stop")):
@@ -527,38 +717,52 @@ class Simulation:
                 return "cpulimit"
         return None
 
-    def _note_no_restart(self, why: str):
-        """Restart files need io/restart.py, not yet ported (ROADMAP Queue 1
-        item 10): the run says so in info.txt instead of writing one."""
-        if "info" in self._logs:
-            self._logs["info"].write(
-                f"{why}: no restart file written (restart files are not yet "
-                "ported to ngravs_tpu_torch, ROADMAP Queue 1 item 10)\n")
-            self._logs["info"].flush()
-
     def run(self, max_steps: int | None = None):
         """run() (run.c:20): loop to TimeMax.  At entry, all particles have
-        ti_endstep == 0 so the first step computes forces for everyone.  A
-        `stop` file in the output dir or 85% of TimeLimitCPU ends the run
-        (run.c:67-103)."""
+        ti_endstep == 0 so the first step computes forces for everyone.
+
+        A `stop` file in the output dir or 85% of TimeLimitCPU writes a
+        restart file and returns (run.c:67-103); a restart file is also
+        written every CpuTimeBetRestartFile seconds (run.c:108-125), and a
+        crash dump before an exception propagates."""
         steps = 0
         self._wall_start = getattr(self, "_wall_start", _time.time())
         last_restart = _time.time()
         while self.ti_current < C.TIMEBASE:
-            self.step()
+            # after a TimeMax-extending resume the timeline covers more than
+            # TimeMax; stop on Time > TimeMax like the reference (run.c:32)
+            if self.cfg.timeline_time_max \
+                    and self.time > self.cfg.time_max * (1 + 1e-12):
+                break
+            try:
+                self.step()
+            except Exception:
+                # crash dump (dump_particles, forcetree.c:3557): the full
+                # state for post-mortem before re-raising
+                if self.log_dir:
+                    try:
+                        self.save_restart(os.path.join(
+                            self.log_dir, "crash_dump.npz"))
+                    except Exception:
+                        pass
+                raise
             steps += 1
             if max_steps is not None and steps >= max_steps:
                 break
             reason = self._interrupt_requested()
             if reason:
-                self._note_no_restart(f"run ended ({reason})")
+                if self.log_dir:
+                    self.save_restart()
+                if reason == "cpulimit" and self.cfg.resubmit_on \
+                        and self.cfg.resubmit_command:
+                    # self-resubmission on the CPU-limit interruption
+                    # (run.c:99-103)
+                    os.system(self.cfg.resubmit_command)
                 break
-            if self.cfg.cpu_time_bet_restart_file > 0 \
+            if self.log_dir and self.cfg.cpu_time_bet_restart_file > 0 \
                     and _time.time() - last_restart \
                     > self.cfg.cpu_time_bet_restart_file:
-                if not self._restart_noted:
-                    self._note_no_restart("periodic restart due")
-                    self._restart_noted = True
+                self.save_restart()
                 last_restart = _time.time()
         if self.ti_current >= C.TIMEBASE and self._next_output < float("inf"):
             self.write_snapshot_now()  # final snapshot (run.c:134-141)

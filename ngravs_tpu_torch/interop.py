@@ -16,19 +16,36 @@ import torch
 
 from .config import SimulationConfig
 from .ops.tree import Octree
-from .particles import Particles
+from .particles import Particles, SphState
+
+
+def _from_numpy(cls, arrays: dict, device):
+    return cls(**{f.name: torch.as_tensor(np.array(arrays[f.name]),
+                                          device=device)
+                  for f in dataclasses.fields(cls)})
+
+
+def _to_numpy(obj) -> dict:
+    return {f.name: getattr(obj, f.name).cpu().numpy()
+            for f in dataclasses.fields(obj)}
 
 
 def particles_from_numpy(arrays: dict, device) -> Particles:
     """Particles from {field: array} (every `Particles` field)."""
-    return Particles(**{f.name: torch.as_tensor(
-        np.array(arrays[f.name]), device=device)
-        for f in dataclasses.fields(Particles)})
+    return _from_numpy(Particles, arrays, device)
 
 
 def particles_to_numpy(p: Particles) -> dict:
-    return {f.name: getattr(p, f.name).cpu().numpy()
-            for f in dataclasses.fields(Particles)}
+    return _to_numpy(p)
+
+
+def sph_from_numpy(arrays: dict, device) -> SphState:
+    """SphState from {field: array} (every `SphState` field)."""
+    return _from_numpy(SphState, arrays, device)
+
+
+def sph_to_numpy(sph: SphState) -> dict:
+    return _to_numpy(sph)
 
 
 def octree_from_numpy(arrays: dict, device) -> Octree:
@@ -54,6 +71,9 @@ def simulation_from_state(state: dict, device, log_dir: str = ""):
 
         config            {field: value} of SimulationConfig (wiring incl.)
         particles         {field: array} of every `Particles` field
+        sph               {field: array} of every `SphState` field
+                          (optional; a gas run past its first force pass,
+                          so the entropy field holds A, not u)
         ti_current, dt_displacement, pm_ti_begstep, pm_ti_endstep
         step_count, num_force_updates, next_output, next_stats (optional)
 
@@ -64,7 +84,10 @@ def simulation_from_state(state: dict, device, log_dir: str = ""):
     from .integrate.runner import Simulation
     cfg = config_from_dict(state["config"])
     p = particles_from_numpy(state["particles"], device)
-    sim = Simulation(cfg, particles=p, log_dir=log_dir, device=device)
+    sph = sph_from_numpy(state["sph"], device) if "sph" in state else None
+    sim = Simulation(cfg, particles=p, sph=sph, log_dir=log_dir,
+                     device=device)
+    sim._entropy_is_u = False
     sim.ti_current = int(state["ti_current"])
     sim.dt_displacement = float(state["dt_displacement"])
     sim.pm_ti_begstep = int(state["pm_ti_begstep"])

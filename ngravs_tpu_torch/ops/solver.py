@@ -106,10 +106,6 @@ class GravitySolver:
     def __init__(self, cfg: SimulationConfig, wiring: GravityWiring,
                  fsoft_by_type, g_const: float, hubble: float = 0.0,
                  device="cpu"):
-        if cfg.adaptive_gravsoft_forgas:
-            raise NotImplementedError(
-                "ADAPTIVE_GRAVSOFT_FORGAS needs SPH, not yet ported to "
-                "ngravs_tpu_torch (ROADMAP Queue 1 item 16)")
         self.cfg = cfg
         self.wiring = wiring
         self.G = float(g_const)
@@ -225,8 +221,12 @@ class GravitySolver:
         self.octet_caps = tuple(min(b, ((d * 3 // 2 + 7) // 8) * 8)
                                 for d, b in zip(demand, bound))
 
-    def _fsoft(self, p):
-        return self.fsoft_by_type.to(p.device)[p.ptype.long()]
+    def _fsoft(self, p, hsml):
+        fsoft = self.fsoft_by_type.to(p.device)[p.ptype.long()]
+        if self.cfg.adaptive_gravsoft_forgas:
+            # gas: spline softening = Hsml (gravtree.c:135-138)
+            fsoft = torch.where(p.ptype == 0, hsml, fsoft)
+        return fsoft
 
     def _scatter(self, p, orig, acc, pot, want_pot: bool, ninteract=None):
         """Write G-scaled, corrected target rows back (original order)."""
@@ -268,14 +268,20 @@ class GravitySolver:
 
     # ------------------------------------------------------------------
     def compute(self, p, ti_current: int, n_active: int,
-                opening: str = "relative", want_pot: bool = False):
+                opening: str = "relative", want_pot: bool = False,
+                hsml=None):
         """Forces for the active set (ti_endstep == ti_current); returns
-        (particles', n_interactions, tree or None).
+        (particles', n_interactions, tree or None).  The tree is shared
+        with the SPH passes: `hsml` (gas smoothing lengths, 0 elsewhere)
+        feeds its hmax fields and sorted hsml, and under
+        ADAPTIVE_GRAVSOFT_FORGAS the gas softening.
 
         `want_pot=False` (the default force pass) skips the potential and
         leaves p.potential stale, like the reference (potentials refresh
         only in compute_potential passes)."""
-        fsoft = self._fsoft(p)
+        if hsml is None:
+            hsml = torch.zeros_like(p.mass)
+        fsoft = self._fsoft(p, hsml)
         if self.uses_direct(p.n):
             tgt = torch.nonzero(p.ti_endstep == ti_current).squeeze(1)
             acc, pot = direct_forces(
@@ -299,7 +305,6 @@ class GravitySolver:
         self.clamp_caps(p.n)
         bucket = self.cfg.tree_bucket_size
         aold = self.cfg.err_tol_force_acc * p.old_acc / self.G  # G=1 units
-        hsml = torch.zeros_like(p.mass)
         can_refresh = (self._tree_cache is not None
                        and self._forces_since_build
                        < self.cfg.tree_domain_update_frequency * p.n)

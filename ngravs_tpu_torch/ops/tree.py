@@ -405,3 +405,54 @@ def drift_tree(tree: Octree, dd) -> Octree:
     own (the reference's dynamic tree updates, predict.c:83-90)."""
     return tree._replace(node_cm=tree.node_cm + tree.node_vel * dd,
                          pos_s=tree.pos_s + tree.vel_s * dd)
+
+
+# ---------------------------------------------------------------------------
+# Row compaction (ngravs_tpu/ops/tree.py:467-510): a cumsum gives each valid
+# entry its slot; entries past the cap, and invalid ones, are written to one
+# spare column that is cut off afterwards (the JAX scatter's mode="drop").
+# Stable: valid entries keep their order.
+# ---------------------------------------------------------------------------
+
+def _put_rows(buf, idx, vals):
+    """buf[b, :cap] with vals written at idx[b, k] <= cap (cap = spare)."""
+    b, cap = buf.shape
+    out = torch.cat([buf, buf.new_full((b, 1), -1)], dim=1)
+    rows = torch.arange(b, device=buf.device)[:, None].expand_as(idx)
+    out.index_put_((rows, idx), vals.to(out.dtype))
+    return out[:, :cap]
+
+
+def _compact_rows(vals, valid, out_size: int):
+    """Push valid entries left in each row; pad with -1.  Returns
+    ([B, out_size] values, [B] int32 valid counts, including those past
+    out_size)."""
+    pos = torch.cumsum(valid, dim=1) - 1
+    idx = torch.where(valid, pos, out_size).clamp_(max=out_size)
+    out = torch.full((vals.shape[0], out_size), -1, dtype=vals.dtype,
+                     device=vals.device)
+    return (_put_rows(out, idx, vals),
+            valid.sum(dim=1, dtype=torch.int32))
+
+
+def _append_rows(buf, n_in, new):
+    """Append the valid entries of `new` (-1 = invalid) to each row of `buf`
+    (n_in valid entries on the left).  Returns (buf', total counts
+    including entries dropped past the cap)."""
+    cap = buf.shape[1]
+    valid = new >= 0
+    pos = n_in[:, None].long() + torch.cumsum(valid, dim=1) - 1
+    idx = torch.where(valid, pos, cap).clamp_(max=cap)
+    return (_put_rows(buf, idx, new),
+            n_in + valid.sum(dim=1, dtype=torch.int32))
+
+
+def _append_rows2(buf_a, n_in, new_a, buf_b, new_b):
+    """`_append_rows` of `new_a` with the co-indexed `new_b` written to a
+    parallel buffer at the same positions."""
+    cap = buf_a.shape[1]
+    valid = new_a >= 0
+    pos = n_in[:, None].long() + torch.cumsum(valid, dim=1) - 1
+    idx = torch.where(valid, pos, cap).clamp_(max=cap)
+    return (_put_rows(buf_a, idx, new_a), _put_rows(buf_b, idx, new_b),
+            n_in + valid.sum(dim=1, dtype=torch.int32))

@@ -20,20 +20,27 @@ import torch
 class SphState:
     """Per-gas-particle SPH state (reference allvars.h:587-606).
 
-    Stub: the port has no SPH yet (ROADMAP Queue 1 item 16), so only the
-    fields and the all-zero constructor exist."""
-    entropy: torch.Tensor
+    Tensors have length N (the full particle count), as in the JAX
+    package; entries of non-gas particles are unused and stay zero."""
+    entropy: torch.Tensor        # entropic function A (u before the
+                                 # first density pass of an IC)
     density: torch.Tensor
-    hsml: torch.Tensor
+    hsml: torch.Tensor           # smoothing length
     pressure: torch.Tensor
     dt_entropy: torch.Tensor
     hydro_accel: torch.Tensor    # [N,3]
-    vel_pred: torch.Tensor       # [N,3]
+    vel_pred: torch.Tensor       # [N,3] predicted velocity
     div_vel: torch.Tensor
     curl_vel: torch.Tensor
     dhsml_density_factor: torch.Tensor
     max_signal_vel: torch.Tensor
     num_ngb: torch.Tensor
+
+    replace = dataclasses.replace
+
+    def to(self, device) -> "SphState":
+        return SphState(**{f.name: getattr(self, f.name).to(device)
+                           for f in dataclasses.fields(self)})
 
     @staticmethod
     def zeros(n: int, device) -> "SphState":

@@ -1,12 +1,12 @@
 """Command-line entry point:
 
-    python -m ngravs_tpu_torch.run <paramfile> [0|2] [--device cuda|cpu]
+    python -m ngravs_tpu_torch.run <paramfile> [0|1|2] [--device cuda|cpu]
 
 Port of `ngravs_tpu/run.py` (reference main.c:39-54): restartflag 0 starts
-from the ICs, 2 from the last snapshot in OutputDir.  The run is on the
-CUDA card unless `--device cpu` asks for the CPU; without a card it
-raises.  Restartflag 1 (resume from restart files) and the JAX package's
-multi-device `--devices K` are not yet ported and raise.
+from the ICs, 1 resumes from the restart file in OutputDir, 2 starts from
+the last snapshot in OutputDir.  The run is on the CUDA card unless
+`--device cpu` asks for the CPU; without a card it raises.  The JAX
+package's multi-device `--devices K` is not yet ported and raises.
 """
 
 from __future__ import annotations
@@ -39,10 +39,6 @@ def main(argv=None):
         return 1
     paramfile = argv[0]
     restartflag = int(argv[1]) if len(argv) > 1 else 0
-    if restartflag == 1:
-        raise NotImplementedError(
-            "restartflag 1 (resume from restart files) is not yet ported "
-            "to ngravs_tpu_torch (ROADMAP Queue 1 item 10)")
     cfg = read_parameter_file(paramfile)
     try:
         # parameter echo (begrun.c:619): <paramfile>-usedvalues
@@ -57,7 +53,11 @@ def main(argv=None):
                 cfg.output_dir, os.path.basename(paramfile) + "-usedvalues"))
         except OSError:
             pass
-    if restartflag == 2:
+    if restartflag == 1:
+        # resume from restart files (main.c:47-50, restart.c:35)
+        sim = Simulation(cfg, device=device)
+        sim.resume()
+    elif restartflag == 2:
         # start fresh from the last snapshot (init.c:84-85)
         snaps = sorted(glob.glob(
             f"{cfg.output_dir}/{cfg.snapshot_file_base}_*"))

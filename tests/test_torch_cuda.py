@@ -473,3 +473,94 @@ def test_kernel_refuses_an_unaligned_source_buffer(cuda):
     with pytest.raises(ValueError, match="aligned"):
         pairwise_eval({k: v.to(cuda) for k, v in targets.items()}, shifted,
                       n_src.to(cuda))
+
+
+# --------------------------------------------------------------------------
+# SPH gas: the comoving TreePM + SPH box of tests/test_cosmological.py:20-63
+# (2 x 8^3, newton_yukawa) on the card against the CPU
+# --------------------------------------------------------------------------
+
+SPH_FIELDS = ("entropy", "density", "hsml", "pressure", "dt_entropy",
+              "hydro_accel", "vel_pred", "div_vel", "curl_vel",
+              "dhsml_density_factor", "max_signal_vel", "num_ngb")
+
+
+def _gas_box_sims(cuda):
+    """The gas box on the CPU and on the card: type 0 gas (u = 1, gravity
+    0) and type 1 dark matter (gravity 1) half a cell off, masses from
+    Omega0 with OmegaBaryon of it in gas."""
+    import math
+    from ngravs_tpu_torch.particles import SphState
+    from ngravs_tpu_torch.units import set_units
+    rng = np.random.default_rng(11)
+    ns, box = 8, 10000.0
+    g = (np.stack(np.meshgrid(*[np.arange(ns)] * 3, indexing="ij"), -1)
+         .reshape(-1, 3) + 0.5) / ns * box
+    n = len(g)
+    pos = np.concatenate([
+        np.mod(g + rng.normal(0, 0.02 * box / ns, g.shape), box),
+        np.mod(g + rng.normal(0, 0.02 * box / ns, g.shape) + 0.5 * box / ns,
+               box)]).astype(np.float32)
+    vel = rng.normal(0, 1.0, pos.shape).astype(np.float32)
+    ptype = np.repeat([0, 1], n)
+    cfg = SimulationConfig(
+        comoving_integration=True, omega0=1.0, omega_lambda=0.0,
+        omega_baryon=0.1, hubble_param=1.0, time_begin=0.1, time_max=0.2,
+        periodic=True, box_size=box, pmgrid=16, softening=(50.0,) * 6,
+        max_size_timestep=0.02, err_tol_int_accuracy=0.025, des_num_ngb=33,
+        max_num_ngb_deviation=3, n_gravs=2, type_to_grav=(0, 1, 0, 0, 0, 0),
+        wiring="newton_yukawa", tree_depth=6, tree_bucket_size=16,
+        tree_group_size=64, walk_batch_blocks=32, time_bet_snapshot=0.0,
+        time_of_first_snapshot=1e30, time_bet_statistics=0.0)
+    u = set_units(cfg)
+    m_tot = 3 * u.hubble ** 2 / (8 * math.pi * u.G) * box ** 3
+    mass = np.concatenate([np.full(n, 0.1 * m_tot / n),
+                           np.full(n, 0.9 * m_tot / n)])
+    sims = []
+    for d in ("cpu", cuda):
+        sph = SphState.zeros(2 * n, d)
+        sph.entropy[:n] = 1.0                 # u; converted at the first pass
+        sims.append(Simulation(cfg, particles=Particles.create(
+            pos, vel, mass, np.arange(2 * n), ptype, cfg.type_to_grav,
+            device=d), sph=sph, log_dir=""))
+    return sims, n
+
+
+def _assert_gas_close(s0, s1, n_gas, rtol):
+    """SPH fields of the gas within `rtol` relative (hydro terms within
+    `rtol` of their largest value: pair forces cancel)."""
+    for name in SPH_FIELDS:
+        a = getattr(s0.sph, name)[:n_gas]
+        b = getattr(s1.sph, name)[:n_gas].cpu()
+        scale = a.abs() if name in ("entropy", "density", "hsml",
+                                    "pressure", "num_ngb",
+                                    "max_signal_vel") else a.abs().max()
+        assert bool(((a - b).abs() <= rtol * scale + 1e-30).all()), name
+
+
+def test_gas_box_force_pass_on_cuda_matches_cpu(cuda):
+    sims, n = _gas_box_sims(cuda)
+    for s_ in sims:
+        s_.compute_forces(full=True)
+    a0, a1 = sims[0].p.accel, sims[1].p.accel.cpu()
+    assert float((a0 - a1).abs().max()) <= 1e-5 * float(a0.abs().max())
+    _assert_gas_close(*sims, n, 1e-5)
+    assert sims[1].hydro.counts == sims[0].hydro.counts
+    assert float(sims[1].sph.max_signal_vel[:n].min()) > 0
+
+
+def test_gas_box_steps_on_cuda_match_cpu(cuda):
+    sims, n = _gas_box_sims(cuda)
+    before = pairwise_eval.counts.copy()
+    for _ in range(3):
+        for s_ in sims:
+            s_.step()
+        assert sims[0].ti_current == sims[1].ti_current
+        assert (sims[0].pm_ti_begstep, sims[0].pm_ti_endstep) == \
+            (sims[1].pm_ti_begstep, sims[1].pm_ti_endstep)
+        assert torch.equal(sims[0].p.ti_endstep, sims[1].p.ti_endstep.cpu())
+        p0, p1 = sims[0].p.pos, sims[1].p.pos.cpu()
+        assert float((p0 - p1).abs().max()) <= 1e-5 * float(p0.abs().max())
+        _assert_gas_close(*sims, n, 1e-4)
+    assert any(v > before.get(k, 0) for k, v in pairwise_eval.counts.items()
+               if k.startswith("K1bcd"))

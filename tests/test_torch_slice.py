@@ -9,8 +9,9 @@ dt / Timebase_interval stays more than 1e-4 (in log2) from a power of two,
 two orders above the ~1e-6 relative force differences between the
 packages, so rounding cannot move a particle into another bin (the test
 checks this margin; seed 4 would come within 6e-6).  Then `run.main`
-drives a tiny IC from a parameterfile, and the run's stop file and its
-not-yet-ported options behave as documented.  Every run here asks for the
+drives a tiny IC from a parameterfile, the run's stop file writes a
+restart file that resumes, and its not-yet-ported options raise naming
+their ROADMAP item.  Every run here asks for the
 CPU by name: the port's entry points run on the CUDA card by default and
 raise without one.
 
@@ -49,6 +50,10 @@ from ngravs_tpu_torch.interop import simulation_from_state
 from ngravs_tpu_torch.io.gadget_format import (SnapshotData, SnapshotHeader,
                                                read_snapshot, write_snapshot)
 from ngravs_tpu_torch.particles import Particles as TParticles
+
+# tiny tensors: one intra-op thread, so that parallel test workers do not
+# oversubscribe the cores (a parallel run is several times slower else)
+torch.set_num_threads(1)
 
 
 def _two_plummers(n=2000, seed=3, m_tot=300.0):
@@ -162,9 +167,14 @@ def test_stop_file_and_unported_options(tmp_path):
     (out / "stop").write_text("")
     assert sim.run() == 1 and sim.ti_current < TIMEBASE
     sim.close()
-    assert "no restart file written" in (out / "info.txt").read_text()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        trun.main([str(param), "1"])
+    # the stop file writes a restart file (run.c:67-103), which resumes
+    restart = np.load(out / "restart.npz")
+    assert int(restart["ti_current"]) == sim.ti_current
+    np.testing.assert_array_equal(restart["p_pos"], sim.p.pos.numpy())
+    again = TSimulation(read_parameter_file(str(param)), device="cpu")
+    again.resume()
+    assert again.ti_current == sim.ti_current
+    assert torch.equal(again.p.vel, sim.p.vel)
     with pytest.raises(NotImplementedError, match="item 18"):
         trun.main([str(param), "--devices", "4"])
     with pytest.raises(NotImplementedError, match="item 10a"):
