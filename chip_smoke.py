@@ -22,7 +22,7 @@ Phases (any failure raises and exits non-zero):
     particles of types 1-5 as BASELINE.md counts them, two Plummer spheres
     on a collision orbit, disk -> gravity 1) written in format 1 with its
     parameterfile, run as `read_parameter_file(..., direct_crossover=1000,
-    tree_depth=12)` -> `Simulation(cfg)` -> `run(max_steps=100)`; then one
+    tree_depth=12)` -> `Simulation(cfg)` -> `run(max_steps=30)`; then one
     full tree force pass checked against the direct sweep on the card (rms
     relative error < 5e-3), for finite forces and for the momentum rate
     |sum m a| / sum |m a| < 1e-3, timed with the kernel and with the twin
@@ -36,13 +36,20 @@ Phases (any failure raises and exits non-zero):
     wiring, written as a format-1 IC and parameterfile and run as
     `read_parameter_file(..., pmgrid=128, n_gravs=2,
     wiring="newton_yukawa", pm_interlace=True)` -> `Simulation(cfg)` ->
-    `run(max_steps=10)`: K1 (the TreePM multi-law instance) and PM must
-    run, forces finite; then one full TreePM pass (PM + short-range walk)
+    `run(max_steps=3)` with FORCETEST on 2,048 particles (2^-8 of them)
+    on each PM step: K1 (the TreePM multi-law instance) and PM must run,
+    forces finite, every step's FORCETEST rms relative error < 2.5e-2;
+    then one full TreePM pass (PM + short-range walk)
     on every particle, checked on 2,048 sampled targets against the
     periodic direct sum with the Ewald lattice correction (rms relative
     error < 2.5e-2), timed with the kernel and with the twin, PM alone
-    timed, profiled; then K1 against the twin on that pass's largest
-    launch, as for slice 1;
+    timed, profiled; then the run repeats bit for bit (the tree's moments
+    and PM's mass assignment are fixed-order sums): two full force passes
+    from one state, and three steps continued against the same three
+    steps resumed from a restart file; the tree build and one CIC
+    assignment timed in turns against the atomic `index_add_` they
+    replaced; then K1 against the twin on that pass's largest launch, as
+    for slice 1;
  6. slice 3, the gas box: the scheme of examples/cosmological_box.py:53-73
     at the box path's cosmology and width, 2 x 64^3 particles, type 0 gas
     (gravity 0, OmegaBaryon / Omega0 of the mass, IC u = 1 (km/s)^2)
@@ -62,7 +69,25 @@ Phases (any failure raises and exits non-zero):
     `save_restart` and `resume` into a fresh `Simulation` give every array
     back bit for bit.  Then one step profiled (K1's, the density passes'
     and the hydro pass's shares of device time) and K1 against the twin
-    on that step's largest launch.
+    on that step's largest launch;
+ 7. slice 4a, the periodic pure-tree (Ewald) box: slice 2's IC, cosmology,
+    softening and newton_yukawa wiring without PMGRID, the geometric
+    opening criterion (theta 0.5), `run(max_steps=3)` with FORCETEST on
+    2,048 particles each step: K1 (the periodic multi-law instance, K1bc)
+    must run beside the lattice pass; every step's FORCETEST rms relative
+    error < 0.25 (the reference walk's error on this near-uniform IC; see
+    RMS_EWALD), momentum rate < 1e-3; every
+    K1 launch of a full pass within 1e-5 of its sum of |terms| of the
+    twin; the pass for the targets of an eighth of the box profiled (the
+    `lattice_pass` range's share of device time); K1 against the twin on
+    its largest launch;
+ 8. slice 4b, the TreePM box with the tabulated transition: slice 2's box
+    with the yukawa preset (a NoneLaw diagonal, so no closed form: every
+    pair takes the tabulated evaluation and K1 is not launched), PMGRID
+    128 interlaced, relative opening, `run(max_steps=3)` with FORCETEST on
+    the PM steps: rms relative error < 3e-2 (tests/test_treepm.py:223),
+    momentum rate < 1e-3; the run's largest tabulated evaluation on the
+    card against the CPU within 1e-5 of each target's sum of |terms|.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON object with every K1 instance's numbers; the last line is
@@ -86,20 +111,39 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B, G, S = 128, 64, 4096          # the fused walk's pair-kernel shapes
 RTOL_TERMS = 1e-5                # of each target's sum of |terms|
-MAIN_STEPS = 100                 # slice 1's path
+MAIN_STEPS = 30                  # slice 1's path
 # BASELINE.md:54 — GalaxyCollision.IC per-type counts (no gas)
 NPART = (0, 10000, 20000, 10000, 10000, 10000)
 # the box path
 BOX_NSIDE = 64                   # 2 x 64^3 particles
 BOX_SIZE = 50000.0               # kpc/h
 BOX_PMGRID = 128
-BOX_STEPS = 10
+BOX_STEPS = 3
 ORACLE_TARGETS = 2048
 # the gas path
-GAS_STEPS = 10
+GAS_STEPS = 3
 GAS_SAMPLE_BLOCKS = 64
 DES_NGB, NGB_DEV = 33, 3
 RMS_TREE, RMS_TREEPM = 5e-3, 2.5e-2
+# FORCETEST: 2^-8 of 2 x 64^3 particles = 2,048 rows a step.  rms gates:
+# the TreePM band of tests/test_treepm.py:223 for the tabulated box (the
+# box path keeps RMS_TREEPM).  The Ewald box's is 0.25, not the 1e-2 of
+# tests/test_lattice.py:100, whose particles are uniform random: on two
+# jittered lattices the net force is small against each node's pull, and
+# the geometric criterion at theta 0.5 leaves a relative error of 0.2 in
+# the JAX walk and the port's alike
+# (tests/test_torch_lattice_walk.py::test_ewald_error_on_a_jittered_
+# lattice_is_the_references), while the walk without its lattice pass
+# errs by more than 1
+FORCETEST_FRAC = 2.0 ** -8
+FORCETEST_ROWS = 2048
+RMS_EWALD, RMS_TABULATED = 0.25, 3e-2
+MOMENTUM_RATE = 1e-3
+# the port's torch.profiler ranges (not kernels)
+RANGES = ("sph_density", "sph_hydro", "lattice_pass")
+# slices 4a (periodic pure tree, Ewald) and 4b (tabulated TreePM)
+EWALD_STEPS = 3
+TAB_STEPS = 3
 # synthetic K1 instances: label -> (wiring, n_gravs, periodic, TreePM,
 # accumulator); the synthetic box is SYN_BOX wide, TreePM at PMGRID 32
 SYN_BOX = 100.0
@@ -121,6 +165,15 @@ OPS_BASE, OPS_PERIODIC, OPS_TPM_U = 17, 12, 2
 OPS_LAW = {0: (0, 0), 1: (6, 5), 2: (6, 5), 3: (13, 5), 4: (18, 8),
            5: (30, 15), 6: (30, 15), 7: (30, 15)}
 OPS_TPM = {1: (23, 17), 3: (67, 22), 4: (104, 49)}
+
+
+T_START = time.perf_counter()
+
+
+def stamp(what: str):
+    """The seconds since the script started, after `what`."""
+    print(f"elapsed {time.perf_counter() - T_START:.0f} s: {what}",
+          flush=True)
 
 
 def card_line() -> str:
@@ -450,15 +503,23 @@ def timed_passes(sim, solver, card: str, label: str):
     return (k1 + k2) / 2
 
 
-def profile_pass(sim, solver, card: str, label: str, with_pm: bool = False):
+def profile_pass(sim, solver, card: str, label: str, with_pm: bool = False,
+                 ranges=(), slab: float = 1.0):
     """Where a force pass's time goes: one full pass (and, `with_pm`, the
     PM forces) under torch.profiler: CUDA kernel count and device time,
-    K1's share."""
+    K1's share, and the device time under each named range of `ranges`.
+    `slab` < 1 makes the targets only the particles with x below that
+    fraction of the box (fewer blocks: the profiler's own processing of a
+    300k-kernel pass takes minutes)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from ngravs_tpu_torch.ops.pairwise import pairwise_eval
     solver.pair_eval = pairwise_eval
     p_all = all_active(sim)
+    if slab < 1:
+        p_all = p_all.replace(ti_endstep=torch.where(
+            sim.p.pos[:, 0] < slab * sim.cfg.box_size, p_all.ti_endstep,
+            p_all.ti_endstep + 1))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -470,20 +531,34 @@ def profile_pass(sim, solver, card: str, label: str, with_pm: bool = False):
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0.0))
+    # kernels only: a record_function range has a device-side event too
     kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA and e.key not in RANGES]
     k1 = [e for e in kern if "pairwise_kernel" in e.key]
     busy_ms = sum(dev_us(e) for e in kern) / 1e3
     k1_ms = sum(dev_us(e) for e in k1) / 1e3
+    shares = "".join(
+        f"; {k} " + (f"{v:.2f} ms ({v / busy_ms:.1%} of device time)"
+                     if v > 0 else "not measured (no device time under it)")
+        for k, v in ((k, range_ms(prof, k)) for k in ranges))
     if busy_ms > 0:
         print(f"{label} [{card}]: {wall_ms:.1f} ms wall (profiler on), "
               f"{sum(e.count for e in kern)} CUDA kernels, device busy "
               f"{busy_ms:.2f} ms ({busy_ms / wall_ms:.1%} of the wall); "
               f"K1 {sum(e.count for e in k1)} launches, {k1_ms:.2f} ms "
-              f"({k1_ms / busy_ms:.1%} of device time)", flush=True)
+              f"({k1_ms / busy_ms:.1%} of device time){shares}", flush=True)
     else:
         print(f"{label} [{card}]: {wall_ms:.1f} ms wall; device time not "
               "measured (the profiler recorded none)", flush=True)
+
+
+def range_ms(prof, name: str) -> float:
+    """Device time of the kernels launched under the torch.profiler range
+    `name`, from the host-side range events (key_averages merges them
+    with the range's own device-side span, which would count it twice)."""
+    from torch.autograd import DeviceType
+    return sum(getattr(e, "device_time_total", 0.0) for e in prof.events()
+               if e.name == name and e.device_type == DeviceType.CPU) / 1e3
 
 
 def run_path(sim, steps: int):
@@ -497,6 +572,77 @@ def run_path(sim, steps: int):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return n, wall, dict(pairwise.pairwise_eval.counts)
+
+
+def forcetest_steps(path: str):
+    """forcetest.txt rows by step: [(ti, rows, rms, max)] of the relative
+    error |a_tree - a_direct| / |a_direct| (columns of
+    gravtree_forcetest.c:294-312, printed with six digits)."""
+    rows = np.loadtxt(path, ndmin=2)
+    if rows.shape[1] != 12:
+        raise AssertionError(f"forcetest.txt rows have {rows.shape[1]} "
+                             "columns, not 12")
+    out = []
+    for ti in np.unique(rows[:, 1]):
+        r = rows[rows[:, 1] == ti]
+        d = np.linalg.norm(r[:, 5:8], axis=1)
+        rel = np.linalg.norm(r[:, 8:11] - r[:, 5:8], axis=1) \
+            / np.maximum(d, 1e-300)
+        out.append((int(ti), len(r), float(np.sqrt(np.mean(rel ** 2))),
+                    float(rel.max())))
+    return out
+
+
+def check_forcetest(label: str, path: str, card: str, rms_gate: float,
+                    min_steps: int, max_steps: int):
+    """Every step's FORCETEST rows: at least FORCETEST_ROWS, rms within
+    `rms_gate`, on min_steps to max_steps steps."""
+    per = forcetest_steps(path)
+    print(f"{label} FORCETEST [{card}]: " + "; ".join(
+        f"ti {ti}: {n} rows, rms rel err {rms:.3e} (max {mx:.3e})"
+        for ti, n, rms, mx in per), flush=True)
+    if not min_steps <= len(per) <= max_steps:
+        raise AssertionError(f"{label}: FORCETEST ran on {len(per)} steps, "
+                             f"not {min_steps}-{max_steps}")
+    for ti, n, rms, _ in per:
+        if n < FORCETEST_ROWS or not rms <= rms_gate:
+            raise AssertionError(f"{label}: FORCETEST at ti {ti}: {n} rows, "
+                                 f"rms {rms} (gate {rms_gate})")
+
+
+def momentum_rate(mass, acc) -> float:
+    ma = mass[:, None] * acc
+    return float(torch.linalg.norm(ma.sum(0)) / ma.abs().sum())
+
+
+def check_every_launch(label: str, launched):
+    """Each recorded K1 launch against the twin on its own inputs: acc and
+    pot within RTOL_TERMS of each target's sum of |terms|, pair counts
+    equal.  Returns the largest |acc| difference."""
+    from ngravs_tpu_torch.ops.pairwise import (instance_name, instance_flags,
+                                               pairwise_eval,
+                                               pairwise_eval_torch)
+    worst = 0.0
+    names = set()
+    for targets, sp, n_src, want_pot, kw in launched:
+        scale, _ = term_scales(targets, sp, n_src, **kw)
+        acc, pot, nia = pairwise_eval(targets, sp, n_src, want_pot, **kw)
+        acc_t, pot_t, nia_t = pairwise_eval_torch(targets, sp, n_src,
+                                                  want_pot, **kw)
+        err = (acc - acc_t).abs()
+        bad = bool((err > RTOL_TERMS * scale[:, :3]).any()) or (
+            want_pot and bool(((pot - pot_t).abs()
+                               > RTOL_TERMS * scale[:, 3]).any()))
+        if bad or not torch.equal(nia, nia_t):
+            raise AssertionError(f"{label}: a K1 launch disagrees with the "
+                                 "twin")
+        worst = max(worst, float(err.max()))
+        names.add(instance_name(instance_flags(want_pot=want_pot, **kw)))
+    print(f"{label}: all {len(launched)} K1 launches "
+          f"({', '.join(sorted(names))}) within {RTOL_TERMS:g} of their "
+          f"sums of |terms| of the twin, pair counts equal, max|dacc| "
+          f"{worst:.3g}", flush=True)
+    return worst
 
 
 # --------------------------------------------------------------------------
@@ -701,8 +847,15 @@ def box_path(dev, card: str):
     # interlaced mesh halves that error (printed below for both)
     cfg = read_parameter_file(write_cosmo_box(run_dir), pmgrid=BOX_PMGRID,
                               n_gravs=2, wiring="newton_yukawa",
-                              pm_interlace=True)
+                              pm_interlace=True, force_test=FORCETEST_FRAC)
+    ft_path = os.path.join(run_dir, "forcetest.txt")
+    if os.path.exists(ft_path):
+        os.remove(ft_path)
+    lattice.last_generator = None
+    t0 = time.perf_counter()
     sim = Simulation(cfg, device=dev)
+    init_s = time.perf_counter() - t0
+    tables_by = lattice.last_generator or "from the cache"
     n = sim.p.n
     if n != 2 * BOX_NSIDE ** 3 or sim.solver.treepm is None \
             or sim.solver.uses_direct(n):
@@ -725,9 +878,13 @@ def box_path(dev, card: str):
           f"{sim.num_force_updates / wall:.1f} particle-steps/s, K1 "
           f"launches {counts}, PM window ({sim.pm_ti_begstep}, "
           f"{sim.pm_ti_endstep}), tree depth {sim.solver.depth}, walk caps "
-          f"{sim.solver.fcaps}; host seconds by phase: "
+          f"{sim.solver.fcaps}, set-up {init_s:.1f} s (FORCETEST's lattice "
+          f"tables EN={cfg.ngravs_en} {tables_by}); host seconds by phase: "
           + ", ".join(f"{k} {v:.2f}" for k, v in sim.cpu_timers.items()),
           flush=True)
+    # FORCETEST runs on the PM steps (gravtree_forcetest.c:46-49)
+    check_forcetest("box path", ft_path, card, RMS_TREEPM, 1, steps)
+    stamp("box path run")
 
     # one full TreePM pass at the final state: the short-range walk and PM
     # on every particle, against the periodic direct sum with the lattice
@@ -781,14 +938,95 @@ def box_path(dev, card: str):
           "gated)", flush=True)
     if not rms < RMS_TREEPM:
         raise AssertionError(f"TreePM vs Ewald direct rms error {rms}")
+    stamp("box path TreePM pass against the Ewald sum")
     pass_s = timed_passes(sim, solver, card, "TreePM short-range pass")
     pm_ms = cuda_ms(lambda: solver.pm_forces(p), 5)
     print(f"PM forces [{card}]: {pm_ms:.2f} ms (median of 5, CUDA events, "
           f"PMGRID {cfg.pmgrid}, interlaced, 2 source gravities); full "
           f"TreePM pass about {pass_s * 1e3 + pm_ms:.1f} ms", flush=True)
     profile_pass(sim, solver, card, "profiled TreePM pass", with_pm=True)
-    sim.close()
+    stamp("box path timed and profiled passes")
+    check_reproducible(sim, solver, cfg, dev, card, run_dir)
     return launches, launched
+
+
+def check_reproducible(sim, solver, cfg, dev, card: str, run_dir: str):
+    """Runs on the card repeat bit for bit (the tree's moments and PM's
+    mass assignment are fixed-order sums): two full force passes (tree
+    build, walk, PM) from one state; two three-step runs from one state,
+    the run continued and the same steps resumed from a restart file
+    written at that state.  Then the tree build and one CIC assignment
+    timed in turns with the fixed-order sums and with the plain atomic
+    `index_add_` they replaced."""
+    from ngravs_tpu_torch.integrate.runner import Simulation
+    from ngravs_tpu_torch.ops import pm as tpm
+    from ngravs_tpu_torch.ops import tree as ttree
+    from ngravs_tpu_torch.ops.pairwise import pairwise_eval
+    bits = lambda t: t.contiguous().view(torch.int32)
+    same = lambda a, b: torch.equal(bits(a), bits(b))
+    p = sim.p
+    passes = []
+    for _ in range(2):
+        acc, _ = full_force_pass(sim, solver, pairwise_eval)
+        passes.append((acc, solver.pm_forces(p)))
+    if not (same(passes[0][0], passes[1][0])
+            and same(passes[0][1], passes[1][1])):
+        raise AssertionError("two force passes from one state differ")
+
+    # the continued run and two resumed ones; FORCETEST is off for these
+    # steps (it reads the state and changes none of it)
+    path = sim.save_restart(os.path.join(run_dir, "box_restart.npz"))
+    quiet = cfg.replace(force_test=0.0)
+    sim.cfg = quiet
+    fresh = Simulation(quiet, device=dev, log_dir="")
+    fresh.resume(path)
+    runs = [sim, fresh]
+    t0 = time.perf_counter()
+    for r in runs:
+        r.run(max_steps=3)
+    torch.cuda.synchronize()
+    fields = ("pos", "vel", "accel", "accel_pm", "old_acc", "ti_endstep")
+    if fresh.ti_current != sim.ti_current or not all(
+            same(getattr(fresh.p, f), getattr(sim.p, f)) for f in fields):
+        raise AssertionError("the resumed run differs from the continued "
+                             "run")
+    print(f"reproducible [{card}]: two full force passes (tree build, walk, "
+          f"PM) bit-identical; 3 steps continued and the same 3 resumed "
+          f"from the restart file: every array bit-identical ({fields}; "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # the fixed-order sums against the atomic index_add_, in turns
+    plain = lambda out, idx, src: out.index_add_(0, idx, src)
+    fixed = ttree.fixed_order_index_add
+    fsoft = torch.as_tensor(sim.force_soft, device=dev)[p.ptype.long()]
+    build = lambda: ttree.build_tree(
+        p.pos, p.mass, p.grav, fsoft, p.old_acc, depth=solver.depth,
+        n_gravs=cfg.n_gravs, bucket=cfg.tree_bucket_size,
+        box_size=cfg.box_size, group_size=cfg.walk_group_size, vel=p.vel)
+    cic = lambda: tpm.cic_assign(p.pos, p.mass, cfg.pmgrid, cfg.box_size)
+    times = {"fixed": [], "plain": []}
+    repeat = {}
+    try:
+        for mode in ("fixed", "plain", "plain", "fixed"):
+            ttree.fixed_order_index_add = tpm.fixed_order_index_add = \
+                fixed if mode == "fixed" else plain
+            times[mode].append((cuda_ms(build, 5), cuda_ms(cic, 5)))
+            t1, t2 = build(), build()
+            repeat[mode] = same(t1.node_cm, t2.node_cm) \
+                and same(cic(), cic())
+    finally:
+        ttree.fixed_order_index_add = tpm.fixed_order_index_add = fixed
+    mean = lambda m, i: sum(t[i] for t in times[m]) / 2
+    print(f"fixed-order sums [{card}]: tree build {mean('fixed', 0):.2f} ms "
+          f"(plain index_add_ {mean('plain', 0):.2f} ms), one CIC assignment "
+          f"{mean('fixed', 1):.3f} ms (plain {mean('plain', 1):.3f} ms), "
+          f"medians of 5 in turns fixed, plain, plain, fixed; two builds "
+          f"and assignments bit-identical: fixed {repeat['fixed']}, plain "
+          f"{repeat['plain']}", flush=True)
+    if not repeat["fixed"]:
+        raise AssertionError("the fixed-order sums differ between two runs")
+    for r in runs:
+        r.close()
 
 
 # --------------------------------------------------------------------------
@@ -966,14 +1204,13 @@ def profile_gas_step(sim, card: str, launched):
     sim.solver.pair_eval = pairwise_eval
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0.0))
-    tot_us = lambda e: getattr(e, "device_time_total",
-                               getattr(e, "cuda_time_total", 0.0))
     events = prof.key_averages()
-    kern = [e for e in events if e.device_type == DeviceType.CUDA]
+    # kernels only: a record_function range has a device-side event too
+    kern = [e for e in events
+            if e.device_type == DeviceType.CUDA and e.key not in RANGES]
     busy_ms = sum(dev_us(e) for e in kern) / 1e3
     k1_ms = sum(dev_us(e) for e in kern if "pairwise_kernel" in e.key) / 1e3
-    rng_ms = {k: sum(tot_us(e) for e in events if e.key == k) / 1e3
-              for k in ("sph_density", "sph_hydro")}
+    rng_ms = {k: range_ms(prof, k) for k in ("sph_density", "sph_hydro")}
     if busy_ms <= 0:
         print(f"profiled gas step [{card}]: {wall_ms:.1f} ms wall; device "
               "time not measured (the profiler recorded none)", flush=True)
@@ -1096,6 +1333,226 @@ def gas_path(dev, card: str):
 
 
 # --------------------------------------------------------------------------
+# phase 7: slice 4a, the periodic pure-tree (Ewald) box
+# --------------------------------------------------------------------------
+
+def ewald_path(dev, card: str):
+    """Slice 4a's path: the box path's IC, cosmology, softening and
+    newton_yukawa wiring without PMGRID, the geometric opening criterion
+    (theta 0.5), EWALD_STEPS steps with FORCETEST.  Returns its K1 launch
+    count, the inputs of every launch of a full pass after the steps, and
+    the largest |acc| difference of those launches from the twin."""
+    from ngravs_tpu_torch.config import read_parameter_file
+    from ngravs_tpu_torch.integrate.runner import Simulation
+    from ngravs_tpu_torch.ops import lattice
+    from ngravs_tpu_torch.ops.pairwise import pairwise_eval
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_ewald")
+    os.makedirs(run_dir, exist_ok=True)
+    ft_path = os.path.join(run_dir, "forcetest.txt")
+    if os.path.exists(ft_path):
+        os.remove(ft_path)
+    # the geometric criterion: on a near-uniform lattice without a mesh
+    # |a_old| is tiny, and the relative one opens almost every node
+    cfg = read_parameter_file(write_cosmo_box(run_dir), n_gravs=2,
+                              wiring="newton_yukawa", solver="tree",
+                              type_of_opening_criterion=0,
+                              force_test=FORCETEST_FRAC)
+    lattice.last_generator = None
+    t0 = time.perf_counter()
+    sim = Simulation(cfg, device=dev)
+    init_s = time.perf_counter() - t0
+    n = sim.p.n
+    if n != 2 * BOX_NSIDE ** 3 or sim.solver.pm is not None \
+            or sim.solver.lattice_tables is None or sim.solver.uses_direct(n):
+        raise AssertionError("slice 4a must walk the periodic tree with the "
+                             "lattice pass at 2 x 64^3")
+    steps, wall, counts = run_path(sim, EWALD_STEPS)
+    launches = sum(counts.values())
+    if sum(v for k, v in counts.items() if k.startswith("K1bc")) <= 0:
+        raise AssertionError(f"slice 4a never launched the periodic "
+                             f"multi-law K1 instance: {counts}")
+    for k in ("pos", "vel", "accel"):
+        if not bool(torch.isfinite(getattr(sim.p, k)).all()):
+            raise AssertionError(f"non-finite {k} on slice 4a")
+    mom = momentum_rate(sim.p.mass, sim.p.accel)
+    print(f"Ewald path [{card}]: {steps} steps to a={sim.time:.6g}, "
+          f"{sim.num_force_updates} particle-steps in {wall:.2f} s = "
+          f"{sim.num_force_updates / wall:.1f} particle-steps/s (FORCETEST "
+          f"included), K1 launches {counts}, set-up {init_s:.1f} s (lattice "
+          f"tables EN={cfg.ngravs_en} "
+          f"{lattice.last_generator or 'from the cache'}), tree depth "
+          f"{sim.solver.depth}, walk caps {sim.solver.fcaps}, momentum rate "
+          f"{mom:.2e}; host seconds by phase: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sim.cpu_timers.items()),
+          flush=True)
+    check_forcetest("Ewald path", ft_path, card, RMS_EWALD, steps, steps)
+    if not mom < MOMENTUM_RATE:
+        raise AssertionError(f"slice 4a momentum rate {mom}")
+    stamp("Ewald path run")
+
+    launched = []
+    solver = pass_solver(sim)
+    stamp("Ewald path: a solver of its own")
+    full_force_pass(sim, solver, record_launches(pairwise_eval, launched))
+    stamp("Ewald path: a pass recorded")
+    worst = check_every_launch("Ewald pass", launched)
+    stamp("Ewald path: every launch against the twin")
+    # the targets of an eighth of the box: the profiler's processing of a
+    # whole pass (321k kernels) took about 200 s on the H100's host
+    profile_pass(sim, solver, card, "profiled Ewald pass (x < box/8)",
+                 ranges=("lattice_pass",), slab=0.125)
+    sim.close()
+    return launches, launched, worst
+
+
+# --------------------------------------------------------------------------
+# phase 8: slice 4b, the TreePM box with the tabulated transition
+# --------------------------------------------------------------------------
+
+def tabulated_term_scales(targets, sp, n_src, wiring, box_size, sr_ftab,
+                          sr_ptab, asmth):
+    """Per target, the sums over valid pairs of |fac*dx|, |fac*dy|,
+    |fac*dz| and |pot term| of the tabulated evaluation."""
+    from ngravs_tpu_torch.ops import walk as twalk
+    from ngravs_tpu_torch.ops.pairwise import FCOUNT, FMASS, FSOFT, IGRAV
+    from ngravs_tpu_torch.ops.shortrange import (longrange_force_factor,
+                                                 longrange_pot_factor)
+    nb, _, s = sp.shape
+    g = targets["x"].shape[0] // nb
+    ng, ntab = wiring.n_gravs, int(sr_ftab.shape[-1])
+    out = torch.zeros(nb * g, 4, device=sp.device)
+    for sl in twalk._block_chunks(nb, s, g, None):
+        spc = sp[sl]
+        col, valid, d = twalk._pair_geometry(targets, spc, sl, n_src, g,
+                                             box_size)
+        tg = col("grav")
+        sg = spc[:, IGRAV, :].view(torch.int32)[:, None, :]
+        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        r = torch.sqrt(r2)
+        h = torch.maximum(col("fsoft"), spc[:, None, FSOFT, :])
+        sm = spc[:, None, FMASS, :]
+        cnt = spc[:, None, FCOUNT, :] if wiring.accumulator else 1.0
+        pair = tg * ng + sg
+        lr, inside = longrange_force_factor(
+            sr_ftab.reshape(ng * ng, ntab), asmth, ntab, r, pair)
+        lrp, _ = longrange_pot_factor(sr_ptab.reshape(ng * ng, ntab), asmth,
+                                      ntab, r, pair)
+        fac = torch.zeros_like(r)
+        pot = torch.zeros_like(r)
+        for law, slots in wiring.unique_laws():
+            mk = torch.zeros_like(valid)
+            for i, j in slots:
+                mk = mk | ((tg == i) & (sg == j))
+            fac = torch.where(mk, law.force_factor_tpm(col("mass"), sm, r2, r,
+                                                       h, cnt, lr), fac)
+            pot = torch.where(mk, law.potential_factor_tpm(
+                col("mass"), sm, r2, r, h, cnt, lrp), pot)
+        ok = valid & inside
+        rows = torch.arange(nb * g, device=sp.device).reshape(nb, g)[sl]
+        out[rows.reshape(-1)] = torch.stack(
+            [torch.where(ok, (fac * x).abs(), 0.).sum(-1) for x in d]
+            + [torch.where(ok, pot.abs(), 0.).sum(-1)],
+            dim=-1).reshape(-1, 4)
+    return out
+
+
+def tabulated_path(dev, card: str):
+    """Slice 4b's path: the box path's IC with the yukawa preset (a NoneLaw
+    diagonal: no closed-form truncation, so every pair takes the tabulated
+    transition and K1 is not launched), PMGRID 128 interlaced, the
+    relative criterion, TAB_STEPS steps with FORCETEST on the PM steps;
+    then the largest tabulated evaluation of the run again on the card and
+    on the CPU."""
+    from ngravs_tpu_torch.config import read_parameter_file
+    from ngravs_tpu_torch.integrate.runner import Simulation
+    from ngravs_tpu_torch.ops import walk as twalk
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_tab")
+    os.makedirs(run_dir, exist_ok=True)
+    ft_path = os.path.join(run_dir, "forcetest.txt")
+    if os.path.exists(ft_path):
+        os.remove(ft_path)
+    cfg = read_parameter_file(write_cosmo_box(run_dir), pmgrid=BOX_PMGRID,
+                              n_gravs=2, wiring="yukawa", pm_interlace=True,
+                              force_test=FORCETEST_FRAC)
+    sim = Simulation(cfg, device=dev)
+    n = sim.p.n
+    laws = sim.wiring.unique_laws()
+    if n != 2 * BOX_NSIDE ** 3 or sim.solver.treepm is None \
+            or all(law.kernel_shortrange() is not None for law, _ in laws):
+        raise AssertionError("slice 4b must run TreePM with a law that has "
+                             "no closed-form truncation at 2 x 64^3")
+    # keep the inputs of the evaluation with the most sources
+    evals = {"calls": 0, "largest": None, "rows": -1}
+    tab_eval = twalk.tabulated_pair_eval
+
+    def recording(targets, sp, n_src, want_pot, **kw):
+        evals["calls"] += 1
+        rows = int(n_src.sum())
+        if rows > evals["rows"]:
+            evals["rows"] = rows
+            evals["largest"] = (targets, sp, n_src, want_pot, kw)
+        return tab_eval(targets, sp, n_src, want_pot, **kw)
+
+    twalk.tabulated_pair_eval = recording
+    try:
+        steps, wall, counts = run_path(sim, TAB_STEPS)
+    finally:
+        twalk.tabulated_pair_eval = tab_eval
+    if counts or evals["calls"] == 0:
+        raise AssertionError(f"slice 4b must evaluate every pair with the "
+                             f"tabulated transition: K1 {counts}, tabulated "
+                             f"evaluations {evals['calls']}")
+    p = sim.p
+    if not (bool(p.accel_pm.abs().max() > 0) and sim.pm_ti_endstep > 0):
+        raise AssertionError("PM never ran on slice 4b")
+    for k in ("pos", "vel", "accel", "accel_pm"):
+        if not bool(torch.isfinite(getattr(p, k)).all()):
+            raise AssertionError(f"non-finite {k} on slice 4b")
+    mom = momentum_rate(p.mass, p.accel + p.accel_pm)
+    print(f"tabulated TreePM path [{card}]: {steps} steps to "
+          f"a={sim.time:.6g}, {sim.num_force_updates} particle-steps in "
+          f"{wall:.2f} s = {sim.num_force_updates / wall:.1f} "
+          f"particle-steps/s (FORCETEST included), {evals['calls']} "
+          f"tabulated evaluations, K1 launches {counts}, PM window "
+          f"({sim.pm_ti_begstep}, {sim.pm_ti_endstep}), momentum rate "
+          f"{mom:.2e}; host seconds by phase: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sim.cpu_timers.items()),
+          flush=True)
+    check_forcetest("tabulated TreePM path", ft_path, card, RMS_TABULATED,
+                    1, steps)
+    if not mom < MOMENTUM_RATE:
+        raise AssertionError(f"slice 4b momentum rate {mom}")
+
+    # the largest evaluation on the card against the CPU
+    targets, sp, n_src, want_pot, kw = evals["largest"]
+    evals.clear()
+    got = tab_eval(targets, sp, n_src, want_pot, **kw)
+    ms = cuda_ms(lambda: tab_eval(targets, sp, n_src, want_pot, **kw), 3)
+    cpu = lambda t: t.cpu() if torch.is_tensor(t) else t
+    kw_c = {k: cpu(v) for k, v in kw.items()}
+    t_c = {k: v.cpu() for k, v in targets.items()}
+    t0 = time.perf_counter()
+    want = tab_eval(t_c, sp.cpu(), n_src.cpu(), want_pot, **kw_c)
+    cpu_s = time.perf_counter() - t0
+    scale = tabulated_term_scales(t_c, sp.cpu(), n_src.cpu(),
+                                  **{k: v for k, v in kw_c.items()})
+    err_a = (got[0].cpu() - want[0]).abs()
+    err_p = (got[1].cpu() - want[1]).abs()
+    if bool((err_a > RTOL_TERMS * scale[:, :3]).any()) or (
+            want_pot and bool((err_p > RTOL_TERMS * scale[:, 3]).any())) \
+            or not torch.equal(got[2].cpu(), want[2]):
+        raise AssertionError("the tabulated evaluation on the card differs "
+                             "from the CPU's")
+    print(f"tabulated evaluation [{card}]: the largest of the run "
+          f"({tuple(sp.shape)}, {int(n_src.sum())} source rows, "
+          f"{int(want[2].sum())} pairs) on the card and on the CPU: within "
+          f"{RTOL_TERMS:g} of each target's sum of |terms| (max|dacc| "
+          f"{float(err_a.max()):.3g}), pair counts equal; {ms:.2f} ms on the "
+          f"card (median of 3), {cpu_s:.2f} s on the CPU", flush=True)
+    sim.close()
+
+
+# --------------------------------------------------------------------------
 
 def kernel_entry(name: str, launches: int, nums: dict, errs) -> dict:
     return {"name": name, "route": "cuda",
@@ -1140,14 +1597,23 @@ def main() -> int:
         synthetic[case] = check_kernel(f"kernel (synthetic, {case})",
                                        *inputs, (False, True), kw)
 
-    # phases 4-6: the three main paths, each with its counts from 0
+    stamp("build and synthetic K1 instances")
+    # phases 4-8: the five paths, each with its counts from 0
     launches1, launched = galaxy_path(dev, card)
     galaxy_batch = check_largest_launch("kernel (main-path batch)", launched)
+    stamp("slice 1")
     launches2, launched = box_path(dev, card)
     box_batch = check_largest_launch("kernel (box-path batch)", launched)
+    stamp("slice 2 (box path, reproducibility)")
     launches3, launched = gas_path(dev, card)
     gas_batch = check_largest_launch("kernel (gas-path batch)", launched)
+    stamp("slice 3 (gas)")
+    launches4, launched, ewald_err = ewald_path(dev, card)
+    ewald_batch = check_largest_launch("kernel (Ewald-path batch)", launched)
     del launched
+    stamp("slice 4a (Ewald)")
+    tabulated_path(dev, card)
+    stamp("slice 4b (tabulated TreePM)")
 
     entries = [kernel_entry("K1a (slice 1 path, open box, one Newton law)",
                             launches1, galaxy_batch,
@@ -1159,7 +1625,11 @@ def main() -> int:
                             [box_batch["max_abs_err"]]),
                kernel_entry(f"{gas_batch['name']} (gas path, newton_yukawa "
                             "periodic TreePM + SPH)", launches3, gas_batch,
-                            [gas_batch["max_abs_err"]])]
+                            [gas_batch["max_abs_err"]]),
+               kernel_entry(f"{ewald_batch['name']} (slice 4a path, "
+                            "newton_yukawa periodic pure tree, beside the "
+                            "lattice pass)", launches4, ewald_batch,
+                            [ewald_batch["max_abs_err"], ewald_err])]
     path_counts = {box_batch["name"]: launches2 + launches3}
     for case, rep in synthetic.items():
         for want_pot, r in rep.items():

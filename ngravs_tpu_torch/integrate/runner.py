@@ -11,11 +11,13 @@ reference run.c:20-141, begrun.c, init.c).
 
 Runs stepped one sync point at a time (the general `step()` of the JAX
 package; it has no device-resident segments): open boxes with the tree or
-the direct sweep, and periodic TreePM boxes (PMGRID), Newtonian or
-comoving, collisionless or with SPH gas.  Under PMGRID a PM step forces a
-full sync (run.c:175-181), the long-range force is computed first
-(accel.c:34-42), and after the short-range kick every particle gets the
-long-range kick over the PM midpoint window (timestep.c:350-408).  Gas
+the direct sweep, periodic boxes with the Ewald-corrected tree or direct
+sweep, and periodic TreePM boxes (PMGRID), Newtonian or comoving,
+collisionless or with SPH gas, with FORCETEST rows on request.  Under
+PMGRID a PM step forces a full sync (run.c:175-181), the long-range force
+is computed first (accel.c:34-42), and after the short-range kick every
+particle gets the long-range kick over the PM midpoint window
+(timestep.c:350-408).  Gas
 runs the density and hydro passes (`ops/sph.py`) after gravity on the
 gravity walk's tree (accel.c:60-89).  Restart files (`io/restart.py`) are
 written on the stop file, at 85% of TimeLimitCPU, every
@@ -55,12 +57,6 @@ def _check_supported(cfg: SimulationConfig, segment_steps: int):
     todo = [
         (segment_steps != 1, "segment_steps > 1 (device-resident segments)",
          "Queue 1 item 10a"),
-        (cfg.periodic and not cfg.pmgrid and not cfg.no_gravity,
-         "the periodic pure-tree run (Ewald lattice pass)",
-         "Queue 1 item 13"),
-        (cfg.pmgrid and not cfg.periodic, "non-periodic PM",
-         "Queue 1 item 14"),
-        (cfg.force_test > 0, "FORCETEST", "Queue 1 item 12"),
         (cfg.flexsteps or cfg.pseudosymmetric or cfg.make_glass,
          "FLEXSTEPS / PSEUDOSYMMETRIC / MAKEGLASS", "Queue 1 item 17"),
         (cfg.twodims or (cfg.long_x, cfg.long_y, cfg.long_z) != (1, 1, 1),
@@ -640,6 +636,13 @@ class Simulation:
             self._sync()
             self.cpu_timers["pm"] += _time.time() - t0
         self.compute_forces()
+
+        # --- FORCETEST: direct-sum accuracy rows (gravtree_forcetest.c:28;
+        # under PMGRID only on PM steps, :46-49; off under NOGRAVITY, :34) ---
+        if cfg.force_test > 0 and not cfg.no_gravity \
+                and (not cfg.pmgrid or pm_step):
+            from ..diagnostics.forcetest import force_test
+            force_test(self)
 
         # --- statistics ---
         if cfg.time_bet_statistics > 0 and self.time >= self._next_stats:

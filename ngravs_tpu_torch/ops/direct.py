@@ -70,6 +70,9 @@ def pairwise_forces(wiring: GravityWiring, tgt: ParticleSlice,
     (`lattice.build_lattice_tables`) add the Ewald correction.
     """
     nt = tgt.pos.shape[0]
+    if lattice_tables is not None:
+        from .lattice import corner_table, lattice_correction
+        corners = corner_table(lattice_tables)
     acc = torch.zeros(nt, 3, dtype=torch.float32, device=tgt.pos.device)
     pot = torch.zeros(nt, dtype=torch.float32, device=tgt.pos.device)
     for c0 in range(0, nt, chunk):
@@ -96,12 +99,11 @@ def pairwise_forces(wiring: GravityWiring, tgt: ParticleSlice,
             pot[sl] = torch.sum(torch.where(valid, p, 0.0), dim=1)
         if lattice_tables is not None:
             # the periodic lattice (Ewald) correction of every pair
-            from .lattice import lattice_correction
             pidx = tgt.grav[sl][:, None].long() * wiring.n_gravs \
                 + src.grav[None, :].long()
             fc = lattice_correction(
                 lattice_tables, 2 * (lattice_tables.shape[1] - 1) / box,
-                dxs[0], dxs[1], dxs[2], pidx)
+                dxs[0], dxs[1], dxs[2], pidx, corners)
             sm = torch.where(valid, src.mass[None, :], 0.0)
             acc[sl] += torch.stack([torch.sum(sm * fc[d], dim=-1)
                                     for d in range(3)], dim=-1)

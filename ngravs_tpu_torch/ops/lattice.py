@@ -348,17 +348,33 @@ def build_lattice_tables(wiring, en: int, box_size: float, device="cpu",
                            dtype=torch.float32, device=device)
 
 
-def lattice_correction(tables, fac_intp: float, dx, dy, dz, pair_idx):
+def corner_table(tables: torch.Tensor) -> torch.Tensor:
+    """[NPAIR, EN+1, EN+1, EN+1, 4] -> [NPAIR * EN^3, 8, 4]: the eight
+    corners of every table cell in the (di, dj, dk) order of
+    `lattice_correction`'s sum, so that one gather of 128 bytes fetches a
+    pair's cell (eight gathers of 16 bytes each ran at about 30 GB/s on
+    an H100; PERF.md §6)."""
+    en = tables.shape[1] - 1
+    return torch.stack([tables[:, di:di + en, dj:dj + en, dk:dk + en]
+                        for di in (0, 1) for dj in (0, 1) for dk in (0, 1)],
+                       dim=-2).reshape(-1, 8, 4)
+
+
+def lattice_correction(tables, fac_intp: float, dx, dy, dz, pair_idx,
+                       corners=None):
     """Trilinear octant lookup (lattice_corr, forcetree.c:3803-3900).
 
     tables: [NPAIR, EN+1, EN+1, EN+1, 4]; fac_intp: 2*EN/BoxSize;
     dx, dy, dz: displacement SOURCE - TARGET (minimum-imaged), any
-    broadcastable shape; pair_idx: int tg*NG+sg of that shape.  Returns
-    (fcx, fcy, fcz, pot) with the octant signs applied: the caller adds
-    mass * fc to the attraction-positive accumulation."""
+    broadcastable shape; pair_idx: int tg*NG+sg of that shape; `corners`:
+    `corner_table(tables)`, built here when not given (callers that look
+    up many times build it once).  Returns (fcx, fcy, fcz, pot) with the
+    octant signs applied: the caller adds mass * fc to the
+    attraction-positive accumulation.  The corners are weighted and summed
+    in the JAX package's order."""
     en = tables.shape[1] - 1
-    npair = tables.shape[0]
-    tflat = tables.reshape(npair * (en + 1) ** 3, 4)
+    if corners is None:
+        corners = corner_table(tables)
 
     def fold(d):
         return torch.abs(d), torch.where(d < 0, 1.0, -1.0)
@@ -375,18 +391,13 @@ def lattice_correction(tables, fac_intp: float, dx, dy, dz, pair_idx):
     i, u = cell(ax)
     j, v = cell(ay)
     k, w = cell(az)
-    base = pair_idx.long() * (en + 1) ** 3
-    idx = base + (i * (en + 1) + j) * (en + 1) + k
-
-    def corner(di, dj, dk):
-        return tflat[idx + (di * (en + 1) + dj) * (en + 1) + dk]
-
-    f = ((1 - u) * (1 - v) * (1 - w))[..., None] * corner(0, 0, 0) \
-        + ((1 - u) * (1 - v) * w)[..., None] * corner(0, 0, 1) \
-        + ((1 - u) * v * (1 - w))[..., None] * corner(0, 1, 0) \
-        + ((1 - u) * v * w)[..., None] * corner(0, 1, 1) \
-        + (u * (1 - v) * (1 - w))[..., None] * corner(1, 0, 0) \
-        + (u * (1 - v) * w)[..., None] * corner(1, 0, 1) \
-        + (u * v * (1 - w))[..., None] * corner(1, 1, 0) \
-        + (u * v * w)[..., None] * corner(1, 1, 1)
+    c = corners[((pair_idx.long() * en + i) * en + j) * en + k]
+    f = ((1 - u) * (1 - v) * (1 - w))[..., None] * c[..., 0, :] \
+        + ((1 - u) * (1 - v) * w)[..., None] * c[..., 1, :] \
+        + ((1 - u) * v * (1 - w))[..., None] * c[..., 2, :] \
+        + ((1 - u) * v * w)[..., None] * c[..., 3, :] \
+        + (u * (1 - v) * (1 - w))[..., None] * c[..., 4, :] \
+        + (u * (1 - v) * w)[..., None] * c[..., 5, :] \
+        + (u * v * (1 - w))[..., None] * c[..., 6, :] \
+        + (u * v * w)[..., None] * c[..., 7, :]
     return sx * f[..., 0], sy * f[..., 1], sz * f[..., 2], f[..., 3]

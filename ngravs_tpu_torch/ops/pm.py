@@ -2,15 +2,17 @@
 `ngravs_tpu/ops/pm.py`).
 
 The reference's `pm_periodic.c` (pmforce_periodic :204, pmpotential_periodic
-:798) as torch ops: CIC assignment by `index_add_` on the flattened grid,
+:798) as torch ops: CIC assignment by a fixed-order scatter-add on the
+flattened grid,
 one `torch.fft.rfftn` per source gravity, the per-pair ngravs Green's
 function with the Gaussian split and the CIC deconvolution
 (pm_periodic.c:436-520), the inverse transform, the 4th-order finite
 difference gradient (pm_periodic.c:686-726) or the spectral one, optional
 grid interlacing, and CIC readout at the receivers.  The multipliers are
 built on the host in f64 from each law's `greens`, as the JAX package
-builds them.  On a GPU `index_add_` is atomic, so the assigned mass, and
-with it every PM force, varies from run to run in the last bits.
+builds them.  Each cell's contributions are summed in an order fixed by
+the data, the same on every device (`tree.fixed_order_index_add`), so PM
+forces repeat bit for bit on the card.
 
 Units: Green's functions take k in mesh cells in [-PMGRID/2, PMGRID/2],
 normalised so the Newtonian 4 pi G/k_phys^2 becomes 1/k_mesh^2
@@ -24,6 +26,8 @@ import math
 
 import numpy as np
 import torch
+
+from .tree import fixed_order_index_add
 
 ASMTH = 1.25   # Makefile.reference default; cfg.asmth overrides
 RCUT = 4.5
@@ -45,14 +49,17 @@ def _corners(pos, pmgrid: int, box: float, shift: float):
 def cic_assign(pos, weight, pmgrid: int, box: float, shift: float = 0.0):
     """Cloud-in-cell mass assignment -> [pmgrid]^3 grid
     (pm_periodic.c:297-331); `shift` (in cells) staggers the grid for
-    interlacing."""
+    interlacing.  The eight corners' contributions go in as one
+    fixed-order scatter."""
     cx, cy, cz = _corners(pos, pmgrid, box, shift)
-    grid = torch.zeros(pmgrid ** 3, dtype=weight.dtype, device=weight.device)
+    cells, vals = [], []
     for bx, wx in cx:
         for by, wy in cy:
             for bz, wz in cz:
-                grid.index_add_(0, (bx * pmgrid + by) * pmgrid + bz,
-                                weight * wx * wy * wz)
+                cells.append((bx * pmgrid + by) * pmgrid + bz)
+                vals.append(weight * wx * wy * wz)
+    grid = torch.zeros(pmgrid ** 3, dtype=weight.dtype, device=weight.device)
+    grid = fixed_order_index_add(grid, torch.cat(cells), torch.cat(vals))
     return grid.reshape(pmgrid, pmgrid, pmgrid)
 
 

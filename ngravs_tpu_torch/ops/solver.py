@@ -132,27 +132,43 @@ class GravitySolver:
         self.octet_caps = None
         self.box = cfg.box_size if cfg.periodic else 0.0
         # periodic pure-tree runs need the lattice (Ewald) tables
-        # (begrun.c:47-49); the port's walk has no lattice pass yet, so
-        # such runs are refused by the walk (ROADMAP Queue 1 item 13)
+        # (begrun.c:47-49: lattice_init when PERIODIC && !PMGRID), and
+        # periodic FORCETEST runs need them for the exact direct-sum oracle
+        # even under PMGRID (the `|| defined(FORCETEST)` there); the
+        # short-range walk must not apply them (the mesh carries the
+        # periodicity), so the oracle's set is kept apart
         self.lattice_tables = None
-        # TreePM: the PM solver and the short-range walk's split scale
-        # and cut (long_range_init, longrange.c:20); the walk takes the
-        # laws' closed-form truncation
+        self.oracle_lattice_tables = None
+        if cfg.periodic and (not cfg.pmgrid or cfg.force_test > 0):
+            from .lattice import build_lattice_tables
+            tabs = build_lattice_tables(wiring, cfg.ngravs_en, cfg.box_size,
+                                        device=device)
+            self.oracle_lattice_tables = tabs
+            if not cfg.pmgrid:
+                self.lattice_tables = tabs
+        # TreePM: the PM solver, the short-range walk's split scale and
+        # cut, and the transition tables (long_range_init, longrange.c:20;
+        # tabulation forcetree.c:3274); the walk takes the laws' closed-form
+        # truncation where every law has one, else the tables
         self.pm = None
         self.treepm = None
         if cfg.pmgrid:
             from .pm import PMSolver
-            if cfg.ngravs_treepm_xition_check:
-                raise NotImplementedError(
-                    "the TreePM transition-table dump needs the tabulated "
-                    "transition, not yet ported to ngravs_tpu_torch "
-                    "(ROADMAP Queue 1 item 14)")
+            from .shortrange import dump_transition_tables, shortrange_tables
             self.pm = PMSolver(wiring, cfg.pmgrid, cfg.box_size, cfg.n_gravs,
                                g_const, asmth_cells=cfg.asmth,
                                gradient=cfg.pm_gradient,
                                interlace=cfg.pm_interlace, device=device)
             self.pm.rcut = cfg.rcut * self.pm.asmth
-            self.treepm = dict(asmth=self.pm.asmth, rcut=self.pm.rcut)
+            sr_ftab, sr_ptab = shortrange_tables(wiring, ntab=cfg.ntab,
+                                                 device=device)
+            self.treepm = dict(asmth=self.pm.asmth, rcut=self.pm.rcut,
+                               sr_ftab=sr_ftab, sr_ptab=sr_ptab)
+            if cfg.ngravs_treepm_xition_check:
+                # NGRAVS_TREEPM_XITION_CHECK (forcetree.c:3299-3391)
+                dump_transition_tables(wiring, sr_ftab, sr_ptab,
+                                       self.pm.asmth, cfg.box_size,
+                                       cfg.output_dir or ".")
         self._corr = cosmo_corrections(cfg, self.G, hubble,
                                        self.lattice_tables)
 

@@ -9,9 +9,10 @@ below their terminal (bucket) node are excluded from deeper levels.
 
 The node layout, the leaf-chunk table and the walk target blocks are the
 JAX package's exactly, so a tree built by either package can be walked by
-the other (see `interop.octree_from_numpy`).  Segment sums are
-`index_add_`, which on a GPU is atomic and sums in a varying order: node
-moments then match the JAX package only to f32 rounding.
+the other (see `interop.octree_from_numpy`).  The float segment sums
+(`fixed_order_index_add`) take an order fixed by the data, the same on
+every device, so a build repeats bit for bit on the card and gives the
+CPU's bits; node moments match the JAX package to f32 rounding.
 """
 
 from __future__ import annotations
@@ -94,7 +95,34 @@ def _p2(x: int, minimum: int) -> int:
     return max(minimum, 1 << int(math.ceil(math.log2(max(int(x), 1)))))
 
 
+def fixed_order_index_add(out, index, src):
+    """`out.index_add_(0, index, src)` with each slot's terms summed in an
+    order fixed by the data alone, the same on every device (on a GPU
+    `index_add_` is atomic and sums in the order threads arrive).  The
+    terms are sorted stably by slot; a segmented inclusive scan (log2 n
+    rounds of shifted adds within runs of one slot) leaves each run's sum
+    at its last element, which is added to its slot.  torch's
+    deterministic `index_add_` also repeats, but serialises each slot's
+    run: 18x slower on a 2 x 64^3 tree build on an H100 (PERF.md §6)."""
+    n = index.shape[0]
+    if n == 0:
+        return out
+    order = torch.sort(index, stable=True).indices
+    key = index[order]
+    v = src[order]
+    col = (-1,) + (1,) * (v.dim() - 1)
+    d = 1
+    while d < n:
+        v[d:] += torch.where((key[d:] == key[:-d]).reshape(col), v[:-d], 0.0)
+        d *= 2
+    slots = torch.arange(out.shape[0], device=out.device)
+    last = torch.clamp(torch.searchsorted(key, slots, right=True) - 1, min=0)
+    out += torch.where((key[last] == slots).reshape(col), v[last], 0.0)
+    return out
+
+
 def _segment_sum(vals, seg, nseg: int):
+    """Integer segment sums (exact in any order)."""
     out = torch.zeros((nseg,) + vals.shape[1:], dtype=vals.dtype,
                       device=vals.device)
     return out.index_add_(0, seg, vals)
@@ -128,16 +156,16 @@ def _run_segments(hk, lk, live, cap: int):
 
 def _moments(mass_s, mpos, mvel, grav_s, seg, live, cap: int, n_gravs: int):
     """Per-(cell, gravity) mass, mass-weighted position and velocity sums,
-    and member counts."""
+    and member counts: one fixed-order sum of the eight columns."""
     nseg = cap * n_gravs + 1
     sid = torch.where(live, seg * n_gravs + grav_s.long(), cap * n_gravs)
     sid = sid.clamp(max=nseg - 1)
-    m_g = _segment_sum(mass_s, sid, nseg)[:-1].reshape(cap, n_gravs)
-    mx_g = _segment_sum(mpos, sid, nseg)[:-1].reshape(cap, n_gravs, 3)
-    mv_g = _segment_sum(mvel, sid, nseg)[:-1].reshape(cap, n_gravs, 3)
-    c_g = _segment_sum(torch.ones_like(mass_s), sid,
-                       nseg)[:-1].reshape(cap, n_gravs)
-    return m_g, mx_g, mv_g, c_g
+    cols = torch.cat([mass_s[:, None], mpos, mvel,
+                      torch.ones_like(mass_s)[:, None]], dim=1)
+    out = torch.zeros(nseg, 8, dtype=cols.dtype, device=cols.device)
+    sums = fixed_order_index_add(out, sid, cols)[:-1].reshape(
+        cap, n_gravs, 8)
+    return sums[..., 0], sums[..., 1:4], sums[..., 4:7], sums[..., 7]
 
 
 def _cm_vel(m_g, mx_g, mv_g, center):

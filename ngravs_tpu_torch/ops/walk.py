@@ -1,12 +1,12 @@
 """Fused Barnes-Hut walk: octet traversal + K1 pair evaluation.
 
-Port of `ngravs_tpu/ops/walk.py`: any wiring (with the accumulator count
-rows), open or periodic boxes, and the TreePM short-range walk with the
-closed-form truncation.  The production force path: the reference's hot
+Port of `ngravs_tpu/ops/walk.py`, all of it: any wiring (with the
+accumulator count rows), open or periodic boxes, the periodic pure-tree
+walk with its lattice (Ewald) pass, and the TreePM short-range walk with
+the closed-form truncation or, for a wiring with a law that has none, the
+tabulated transition.  The production force path: the reference's hot
 loop `force_treeevaluate` (forcetree.c:1244) as one pass over batches of
-target blocks.  Not yet ported, and refused: the periodic pure-tree walk's
-lattice pass (ROADMAP Queue 1 item 13) and the tabulated TreePM transition
-of laws with no closed form (item 14).
+target blocks.
 
  1. **Octet traversal** — tree nodes are laid out in 8-aligned SIBLING
     OCTETS (all 8 child slots of a parent; `build_octet_layout`).  The
@@ -39,7 +39,10 @@ import numpy as np
 import torch
 
 from ..models.wiring import GravityWiring
-from .pairwise import IGID, pairwise_eval
+from .lattice import corner_table, lattice_correction
+from .pairwise import (FCOUNT, FMASS, FSOFT, FX, FY, FZ, IGID, IGRAV,
+                       pairwise_eval)
+from .shortrange import longrange_force_factor, longrange_pot_factor
 from .tree import Octree, level_caps
 
 INT32_MAX = 2**31 - 1
@@ -49,6 +52,11 @@ SUBGROUPS = 4
 
 # walk-table columns (before the per-gravity block)
 WCX, WCY, WCZ, WFLAGS, WCHOCT, WCHUNK0, WNCHUNK, WSOFT = range(8)
+# working set of the torch passes over the packed buffer: chunks of target
+# blocks whose f32 [G, S] temporaries (about _PASS_TEMPS of them live at a
+# time) fit PASS_BYTES
+PASS_BYTES = 1 << 30
+_PASS_TEMPS = 80
 
 
 def _rup(x: int, m: int) -> int:
@@ -303,6 +311,136 @@ def normalize_frontier_caps(frontier_caps, depth: int):
 
 
 # ---------------------------------------------------------------------------
+# Torch passes over the packed [B, 8, S] buffer (the JAX walk runs both in
+# XLA, outside its Pallas kernel: `pallas_ok`, ngravs_tpu/ops/walk.py:508)
+# ---------------------------------------------------------------------------
+
+def _block_chunks(nb: int, s: int, g: int, block_chunk):
+    """Slices of target blocks whose temporaries fit PASS_BYTES (or
+    `block_chunk` blocks each).  Every sum runs along S inside a block, so
+    the chunking changes no bit."""
+    cb = block_chunk or max(1, PASS_BYTES // (4 * _PASS_TEMPS * g * max(s, 1)))
+    return [slice(c0, min(c0 + cb, nb)) for c0 in range(0, nb, cb)]
+
+
+def _pair_geometry(targets, sp, sl, n_src, g, box_size):
+    """Target columns [b, G, 1], the valid-pair mask and the (minimum
+    image) displacements source - target [b, G, S] of a block chunk."""
+    col = lambda k: targets[k].reshape(-1, g, 1)[sl]
+    tgid = col("gid")
+    sgid = sp[:, IGID, :].view(torch.int32)[:, None, :]
+    live = torch.arange(sp.shape[2], device=sp.device)[None, None, :] \
+        < n_src.reshape(-1, 1, 1)[sl]
+    valid = live & (sgid != -1) & (tgid >= 0) & (sgid != tgid)
+    d = [sp[:, None, f, :] - col(k) for f, k in ((FX, "x"), (FY, "y"),
+                                                (FZ, "z"))]
+    if box_size > 0:
+        d = [x - box_size * torch.round(x * (1.0 / box_size)) for x in d]
+    return col, valid, d
+
+
+def tabulated_pair_eval(targets: dict, spacked: torch.Tensor,
+                        n_src: torch.Tensor, want_pot: bool = True, *,
+                        wiring, box_size: float, sr_ftab, sr_ptab,
+                        asmth: float, block_chunk: int | None = None):
+    """The TreePM short-range pair sums with the tabulated transition
+    (ngravs_tpu/ops/walk.py:564-600, forcetree.c:1958-2027): each law's
+    `force_factor_tpm` / `potential_factor_tpm` with the long-range part
+    interpolated from the f64-built tables of its (target, source) gravity
+    pair, 0 beyond u = 3.  The interface of `pairwise_eval` (targets
+    [B*G, 1] columns, spacked [B, 8, S], n_src [B, 1]); runs on the
+    tensors' device in chunks of target blocks.  Returns acc [B*G, 3], pot
+    [B*G] (zeros without want_pot), nia [B*G] int32."""
+    groups = wiring.unique_laws()
+    ng = wiring.n_gravs
+    use_count = wiring.accumulator
+    ntab = int(sr_ftab.shape[-1])
+    ftab = sr_ftab.reshape(ng * ng, ntab)
+    ptab = sr_ptab.reshape(ng * ng, ntab)
+    nb, _, s = spacked.shape
+    g = targets["x"].shape[0] // nb
+    dev = spacked.device
+    acc = torch.zeros(nb, g, 3, dtype=torch.float32, device=dev)
+    pot = torch.zeros(nb, g, dtype=torch.float32, device=dev)
+    nia = torch.zeros(nb, g, dtype=torch.int32, device=dev)
+    for sl in _block_chunks(nb, s, g, block_chunk):
+        sp = spacked[sl]
+        col, valid, d = _pair_geometry(targets, sp, sl, n_src, g, box_size)
+        tg, tm = col("grav"), col("mass")
+        sg = sp[:, IGRAV, :].view(torch.int32)[:, None, :]
+        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        r = torch.sqrt(r2)
+        h = torch.maximum(col("fsoft"), sp[:, None, FSOFT, :])
+        sm = sp[:, None, FMASS, :]
+        n = sp[:, None, FCOUNT, :] if use_count else 1.0
+        pair = tg * ng + sg
+        lr, inside = longrange_force_factor(ftab, asmth, ntab, r, pair)
+        lrp = longrange_pot_factor(ptab, asmth, ntab, r, pair)[0] \
+            if want_pot else None
+        fac = torch.zeros_like(r2)
+        pf = torch.zeros_like(r2) if want_pot else None
+        for law, slots in groups:
+            f_k = law.force_factor_tpm(tm, sm, r2, r, h, n, lr)
+            p_k = law.potential_factor_tpm(tm, sm, r2, r, h, n, lrp) \
+                if want_pot else None
+            if len(groups) == 1:
+                fac, pf = f_k, p_k
+                break
+            mk = torch.zeros_like(valid)
+            for i, j in slots:
+                mk = mk | ((tg == i) & (sg == j))
+            fac = torch.where(mk, f_k, fac)
+            if want_pot:
+                pf = torch.where(mk, p_k, pf)
+        # masked by a select: an invalid pair's factor may be inf/NaN
+        ok = valid & inside
+        acc[sl] = torch.stack([torch.sum(torch.where(ok, fac * x, 0.0),
+                                         dim=-1) for x in d], dim=-1)
+        if want_pot:
+            pot[sl] = torch.sum(torch.where(ok, pf, 0.0), dim=-1)
+        nia[sl] = torch.sum(valid, dim=-1, dtype=torch.int32)
+    return acc.reshape(nb * g, 3), pot.reshape(nb * g), nia.reshape(nb * g)
+
+
+def lattice_pass(targets: dict, spacked: torch.Tensor, n_src: torch.Tensor,
+                 tables: torch.Tensor, n_gravs: int, box_size: float,
+                 block_chunk: int | None = None, corners=None):
+    """The periodic pure-tree walk's lattice (Ewald) correction over the
+    same packed buffer and interaction set as the pair sums
+    (ngravs_tpu/ops/walk.py:969-1008; the reference's second walk,
+    forcetree.c:2077-2432): sources with gid -1 are dropped, nodes (gid
+    -2) kept, self pairs excluded; each pair adds source mass times the
+    trilinear lattice correction of its (target, source) gravity pair at
+    the minimum-image displacement.  `corners`: `lattice.corner_table(
+    tables)` when the caller keeps one.  Returns (acc [B*G, 3], pot
+    [B*G]), to be added to the pair sums."""
+    nb, _, s = spacked.shape
+    g = targets["x"].shape[0] // nb
+    dev = spacked.device
+    fac_intp = 2 * (tables.shape[1] - 1) / box_size
+    if corners is None:
+        corners = corner_table(tables)
+    acc = torch.zeros(nb, g, 3, dtype=torch.float32, device=dev)
+    pot = torch.zeros(nb, g, dtype=torch.float32, device=dev)
+    with torch.profiler.record_function("lattice_pass"):
+        for sl in _block_chunks(nb, s, g, block_chunk):
+            sp = spacked[sl]
+            col, valid, d = _pair_geometry(targets, sp, sl, n_src, g,
+                                           box_size)
+            pidx = col("grav") * n_gravs \
+                + sp[:, IGRAV, :].view(torch.int32)[:, None, :]
+            fcx, fcy, fcz, pc = lattice_correction(tables, fac_intp, *d,
+                                                   pidx, corners)
+            # masked by a select: rows past n_src are not read
+            sm = sp[:, None, FMASS, :]
+            acc[sl] = torch.stack([torch.sum(torch.where(valid, sm * f, 0.0),
+                                             dim=-1)
+                                   for f in (fcx, fcy, fcz)], dim=-1)
+            pot[sl] = torch.sum(torch.where(valid, sm * pc, 0.0), dim=-1)
+    return acc.reshape(nb * g, 3), pot.reshape(nb * g)
+
+
+# ---------------------------------------------------------------------------
 # The walk
 # ---------------------------------------------------------------------------
 
@@ -324,29 +462,43 @@ def make_fused_walk(wiring: GravityWiring, n_gravs: int, *,
     """Build the fused walk.  Returns fn(tree, tgt_sorted, opening_override,
     tables) -> FusedWalkResult.  `chunk_cap`: per-block unified 8-row source
     chunks; `frontier_cap`: per-level frontier slots per block (int or
-    tuple).  `box_size` > 0 walks a periodic box (minimum image);
-    `treepm`: dict(asmth, rcut) makes it the TreePM short-range walk.
-    `pair_eval` is the pair evaluation (K1 by default; a test or a
-    benchmark may pass the plain twin).
+    tuple).  `box_size` > 0 walks a periodic box (minimum image), and
+    with `lattice_tables` ([NG*NG, EN+1, EN+1, EN+1, 4], `lattice.
+    build_lattice_tables`) it is the periodic pure-tree walk, whose
+    lattice pass corrects the minimum-image pair sums to the periodic
+    force.  `treepm`: dict(asmth, rcut) makes it the TreePM short-range
+    walk; a wiring with a law that has no closed-form truncation also
+    needs the transition tables sr_ftab and sr_ptab
+    (`shortrange.shortrange_tables`).  `pair_eval` is the pair evaluation
+    (K1 by default; a test or a benchmark may pass the plain twin).
 
-    One host sync per call: the number of active target blocks."""
-    if lattice_tables is not None:
-        raise NotImplementedError(
-            "the periodic pure-tree walk's lattice (Ewald) pass is not yet "
-            "ported to ngravs_tpu_torch (ROADMAP Queue 1 item 13)")
+    One host sync per call, the number of active target blocks, and one a
+    batch for the torch passes (the lattice pass, the tabulated
+    evaluation): the length of the batch's longest source list."""
     groups = wiring.unique_laws()
-    if treepm is not None and not all(
-            law.kernel_shortrange() is not None for law, _ in groups):
-        raise NotImplementedError(
-            "the tabulated TreePM transition for laws with no closed-form "
-            "truncation is not yet ported to ngravs_tpu_torch (ROADMAP "
-            "Queue 1 item 14)")
     periodic = box_size > 0
+    # All or nothing, as the JAX walk's `closed_form`
+    # (ngravs_tpu/ops/walk.py:503): if any law lacks the closed-form
+    # truncation, every pair takes the tabulated transition in torch ops
+    # instead of K1, which has closed forms only.  The wiring alone
+    # decides; no failed kernel build or launch leads here.
+    tabulated = treepm is not None and not all(
+        law.kernel_shortrange() is not None for law, _ in groups)
+    if tabulated and not all(k in treepm for k in ("sr_ftab", "sr_ptab")):
+        raise ValueError(
+            "TreePM with a law that has no closed-form truncation needs the "
+            "transition tables: treepm=dict(asmth, rcut, sr_ftab, sr_ptab)")
     rcut = float(treepm["rcut"]) if treepm is not None else 0.0
     pair_kw = dict(wiring=wiring, box_size=float(box_size),
                    accumulator=wiring.accumulator,
                    treepm_asmth=(float(treepm["asmth"])
                                  if treepm is not None else 0.0))
+    corners = corner_table(lattice_tables) \
+        if lattice_tables is not None else None
+    if tabulated:
+        tab_kw = dict(wiring=wiring, box_size=float(box_size),
+                      sr_ftab=treepm["sr_ftab"], sr_ptab=treepm["sr_ptab"],
+                      asmth=float(treepm["asmth"]))
     G = group_size
     NG = n_gravs
     B = batch_blocks
@@ -572,7 +724,23 @@ def make_fused_walk(wiring: GravityWiring, n_gravs: int, *,
                        mass=flat(tgt["mass"]), grav=flat(tgt["grav"]),
                        fsoft=flat(tgt["fsoft"]), gid=flat(tgid))
         n_src = (torch.clamp(n_uch, max=CL) * 8).to(torch.int32).reshape(B, 1)
-        a3, pp, nv = pair_eval(targets, ubuf, n_src, want_pot, **pair_kw)
+        if tabulated or lattice_tables is not None:
+            # the torch passes read the batch's live rows only: the buffer
+            # cut at its longest list (one host read a batch; the JAX walk's
+            # loop also runs to the largest n_src)
+            live = max(8, -(-int(torch.amax(n_src)) // 8) * 8)
+            lbuf = ubuf[:, :, :live]
+        if tabulated:
+            a3, pp, nv = tabulated_pair_eval(targets, lbuf, n_src, want_pot,
+                                             **tab_kw)
+        else:
+            a3, pp, nv = pair_eval(targets, ubuf, n_src, want_pot, **pair_kw)
+        if lattice_tables is not None:
+            la, lp = lattice_pass(targets, lbuf, n_src, lattice_tables, NG,
+                                  float(box_size), corners=corners)
+            a3 = a3 + la
+            if want_pot:
+                pp = pp + lp
         return a3.reshape(B, G, 3), pp.reshape(B, G), nv.reshape(B, G), \
             ovf, stats, lvls
 

@@ -1,6 +1,8 @@
 """The port on the card: every K1 instance against its twin, and the walk,
 the main path and the comoving TreePM box path on CUDA against the same
-code on the CPU.
+code on the CPU; the periodic walk's lattice pass and the tabulated TreePM
+evaluation on the card against the CPU; and runs on the card that repeat
+bit for bit (two force passes, two three-step runs, a resume).
 
 Every test here needs an NVIDIA GPU and skips without one.  This file
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -311,11 +313,9 @@ def test_kernel_refuses_a_law_without_a_kind(cuda):
                       sp.to(cuda), n_src.to(cuda), wiring=w)
 
 
-def test_box_path_on_cuda_matches_cpu(cuda):
-    """The comoving TreePM box (2 x 8^3, newton_yukawa) a few steps on the
-    card and on the CPU: the same timeline and PM window, positions within
-    1e-5 relative, accel_pm within 1e-4 of its largest value (the card's
-    scatter-add is atomic)."""
+def _box_sims(devices):
+    """The comoving TreePM box (2 x 8^3, newton_yukawa), one Simulation on
+    each of `devices`."""
     import math
     from ngravs_tpu_torch.units import set_units
     rng = np.random.default_rng(19)
@@ -341,9 +341,16 @@ def test_box_path_on_cuda_matches_cpu(cuda):
     m_tot = 3 * u.hubble ** 2 / (8 * math.pi * u.G) * box ** 3
     mass = np.concatenate([np.full(n, 0.9 * m_tot / n),
                            np.full(n, 0.1 * m_tot / n)])
-    sims = [Simulation(cfg, particles=Particles.create(
+    return [Simulation(cfg, particles=Particles.create(
         pos, vel, mass, np.arange(2 * n), ptype, cfg.type_to_grav,
-        device=d), log_dir="") for d in ("cpu", cuda)]
+        device=d), log_dir="") for d in devices]
+
+
+def test_box_path_on_cuda_matches_cpu(cuda):
+    """The comoving TreePM box a few steps on the card and on the CPU: the
+    same timeline and PM window, positions within 1e-5 relative, accel_pm
+    within 1e-4 of its largest value (the FFTs sum in other orders)."""
+    sims = _box_sims(("cpu", cuda))
     before = pairwise_eval.launches
     for _ in range(4):
         for s_ in sims:
@@ -564,3 +571,141 @@ def test_gas_box_steps_on_cuda_match_cpu(cuda):
         _assert_gas_close(*sims, n, 1e-4)
     assert any(v > before.get(k, 0) for k, v in pairwise_eval.counts.items()
                if k.startswith("K1bcd"))
+
+
+# --------------------------------------------------------------------------
+# the periodic pure-tree walk's lattice pass and the tabulated TreePM
+# evaluation (torch ops over the packed buffer) on the card against the CPU
+# --------------------------------------------------------------------------
+
+def _periodic_inputs(n_gravs, seed=3):
+    """`_inputs` moved into a box of side BOX, with source and target
+    gravities drawn from `n_gravs`; rows past n_src hold NaN."""
+    targets, sp, n_src = _inputs(seed)
+    rng = np.random.default_rng(seed)
+    sp = sp.clone()
+    live = torch.arange(S)[None, :] < n_src.reshape(NB, 1)
+    for a, k in enumerate("xyz"):
+        targets[k] = torch.remainder(targets[k], BOX)
+        sp[:, a] = torch.where(live, torch.remainder(sp[:, a], BOX),
+                               float("nan"))
+    targets["grav"] = torch.as_tensor(
+        rng.integers(0, n_gravs, (NB * G, 1)).astype(np.int32))
+    sp[:, 6] = torch.as_tensor(rng.integers(0, n_gravs, (NB, S))
+                               .astype(np.int32)).view(torch.float32)
+    return targets, sp, n_src
+
+
+def _on(dev, targets, sp, n_src):
+    return ({k: v.to(dev) for k, v in targets.items()}, sp.to(dev),
+            n_src.to(dev))
+
+
+def _within_terms(got, want, scale):
+    return bool(((got.cpu() - want).abs() <= RTOL_TERMS * scale
+                 + 1e-30).all())
+
+
+def test_lattice_pass_on_cuda_matches_cpu(cuda):
+    """acc and pot within 1e-5 of each target's sum of |terms| (the sums
+    along S run in other orders on the two devices)."""
+    from ngravs_tpu_torch.ops import lattice as tlat
+    w = build_wiring(SimulationConfig(
+        n_gravs=2, type_to_grav=(0, 0, 1, 0, 0, 0), wiring="newton_yukawa",
+        box_size=BOX, periodic=True))
+    tabs = tlat.build_lattice_tables(w, 8, BOX, cache=False)
+    targets, sp, n_src = _periodic_inputs(2)
+    acc, pot = twalk.lattice_pass(targets, sp, n_src, tabs, 2, BOX)
+    acc_c, pot_c = twalk.lattice_pass(*_on(cuda, targets, sp, n_src),
+                                      tabs.to(cuda), 2, BOX)
+    # the terms: each valid pair's mass times its correction
+    col, valid, d = twalk._pair_geometry(targets, sp, slice(None), n_src, G,
+                                         BOX)
+    pidx = col("grav") * 2 + sp[:, 6].view(torch.int32)[:, None, :]
+    fc = tlat.lattice_correction(tabs, 2 * 8 / BOX, *d, pidx)
+    term = lambda f: torch.where(valid, (sp[:, None, FMASS] * f).abs(),
+                                 0.0).sum(-1).reshape(NB * G)
+    assert _within_terms(acc_c, acc, torch.stack([term(f) for f in fc[:3]],
+                                                 -1))
+    assert _within_terms(pot_c, pot, term(fc[3]))
+    assert bool(torch.isfinite(acc_c).all()) and float(acc.abs().max()) > 0
+
+
+@pytest.mark.parametrize("want_pot", [True, False])
+def test_tabulated_eval_on_cuda_matches_cpu(cuda, want_pot):
+    """The yukawa preset (a NoneLaw diagonal: no closed form): acc and pot
+    within 1e-5 of each target's sum of |terms|, pair counts equal."""
+    from ngravs_tpu_torch.ops.shortrange import shortrange_tables
+    w = build_wiring(SimulationConfig(
+        n_gravs=2, type_to_grav=(0, 0, 1, 0, 0, 0), wiring="yukawa",
+        box_size=BOX, periodic=True, pmgrid=32))
+    ftab, ptab = shortrange_tables(w, ntab=512)
+    kw = dict(wiring=w, box_size=BOX, sr_ftab=ftab, sr_ptab=ptab,
+              asmth=1.25 * BOX / 32)
+    targets, sp, n_src = _periodic_inputs(2, seed=5)
+    acc, pot, nia = twalk.tabulated_pair_eval(targets, sp, n_src, want_pot,
+                                              **kw)
+    kw_c = dict(kw, sr_ftab=ftab.to(cuda), sr_ptab=ptab.to(cuda))
+    acc_c, pot_c, nia_c = twalk.tabulated_pair_eval(
+        *_on(cuda, targets, sp, n_src), want_pot, **kw_c)
+    # the terms: the evaluation one source row at a time, summed as |.|
+    one = [twalk.tabulated_pair_eval(
+        targets, sp[:, :, k:k + 1].contiguous(),
+        (n_src > k).to(torch.int32), want_pot, **kw) for k in range(S)]
+    scale_a = sum(o[0].abs() for o in one)
+    scale_p = sum(o[1].abs() for o in one)
+    assert torch.equal(nia_c.cpu(), nia)
+    assert _within_terms(acc_c, acc, scale_a)
+    assert _within_terms(pot_c, pot, scale_p)
+    assert float(acc.abs().max()) > 0 and int(nia.sum()) > 0
+
+
+# --------------------------------------------------------------------------
+# runs on the card repeat bit for bit: the tree's moments and PM's mass
+# assignment are fixed-order sums
+# --------------------------------------------------------------------------
+
+def _same(a, b):
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+def test_fixed_order_sums_repeat_and_match_the_cpu(cuda):
+    """1M values into 1000 slots: three sums on the card bit-identical and
+    equal to the CPU's (the same sort and adds in the same order), and
+    within f32 rounding of the plain sum (1e-5 of the sum of |terms|)."""
+    rng = np.random.default_rng(0)
+    idx = torch.as_tensor(rng.integers(0, 1000, 1 << 20))
+    src = torch.as_tensor(rng.normal(0, 1, ((1 << 20), 8)).astype(np.float32))
+    want = ttree.fixed_order_index_add(torch.zeros(1000, 8), idx, src)
+    got = [ttree.fixed_order_index_add(torch.zeros(1000, 8, device=cuda),
+                                       idx.to(cuda), src.to(cuda))
+           for _ in range(3)]
+    assert _same(got[0], got[1]) and _same(got[0], got[2])
+    assert _same(got[0].cpu(), want)
+    plain = torch.zeros(1000, 8).index_add_(0, idx, src)
+    scale = torch.zeros(1000, 8).index_add_(0, idx, src.abs())
+    assert bool(((want - plain).abs() <= 1e-5 * scale).all())
+
+
+def test_box_runs_on_cuda_are_bit_identical(cuda, tmp_path):
+    """Two full force passes (tree build, walk, PM) from one state, two
+    three-step runs from one state, and a save and resume: bit-identical."""
+    s1, s2 = _box_sims((cuda, cuda))
+    for s_ in (s1, s2):
+        s_.compute_forces(full=True)
+    for f in ("accel", "accel_pm", "old_acc", "grav_cost"):
+        assert _same(getattr(s1.p, f), getattr(s2.p, f)), f
+    for s_ in (s1, s2):
+        s_.run(max_steps=3)
+    assert s1.ti_current == s2.ti_current
+    for f in ("pos", "vel", "accel", "accel_pm", "ti_endstep"):
+        assert _same(getattr(s1.p, f), getattr(s2.p, f)), f
+    path = s1.save_restart(str(tmp_path / "restart.npz"))
+    (s3,) = _box_sims((cuda,))
+    s3.resume(path)
+    for s_ in (s1, s3):
+        s_.run(max_steps=2)
+    assert s1.ti_current == s3.ti_current
+    for f in ("pos", "vel", "accel", "accel_pm"):
+        assert _same(getattr(s1.p, f), getattr(s3.p, f)), f

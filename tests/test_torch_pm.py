@@ -178,9 +178,16 @@ def test_treepm_total_force_vs_ewald(tmp_path, monkeypatch):
 
 
 def test_walk_refuses_what_is_not_ported():
+    """The two walks this test once saw refused (ROADMAP items 13 and 14a)
+    are made now; what the walk still refuses is a tabulated TreePM walk
+    without its tables."""
+    from ngravs_tpu_torch.ops.shortrange import shortrange_tables
     w = TWiring([[tlaws.NoneLaw()]])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        make_fused_walk(w, 1, depth=4, treepm=dict(asmth=1.0, rcut=4.5))
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="transition tables"):
         make_fused_walk(w, 1, depth=4, box_size=1.0,
-                        lattice_tables=torch.zeros(1, 2, 2, 2, 4))
+                        treepm=dict(asmth=1.0, rcut=4.5))
+    ftab, ptab = shortrange_tables(w, ntab=16)
+    assert callable(make_fused_walk(w, 1, depth=4, box_size=1.0, treepm=dict(
+        asmth=1.0, rcut=4.5, sr_ftab=ftab, sr_ptab=ptab)))
+    assert callable(make_fused_walk(w, 1, depth=4, box_size=1.0,
+                                    lattice_tables=torch.zeros(1, 2, 2, 2, 4)))

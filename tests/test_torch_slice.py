@@ -10,10 +10,10 @@ two orders above the ~1e-6 relative force differences between the
 packages, so rounding cannot move a particle into another bin (the test
 checks this margin; seed 4 would come within 6e-6).  Then `run.main`
 drives a tiny IC from a parameterfile, the run's stop file writes a
-restart file that resumes, and its not-yet-ported options raise naming
-their ROADMAP item.  Every run here asks for the
-CPU by name: the port's entry points run on the CUDA card by default and
-raise without one.
+restart file that resumes, its not-yet-ported options raise naming their
+ROADMAP item, and the periodic pure-tree run (once refused) runs.  Every
+run here asks for the CPU by name: the port's entry points run on the
+CUDA card by default and raise without one.
 
 The second slice, the comoving periodic TreePM box with the newton_yukawa
 wiring (a 2 x 8^3 collisionless version of tests/test_cosmological.py:
@@ -180,9 +180,14 @@ def test_stop_file_and_unported_options(tmp_path):
     with pytest.raises(NotImplementedError, match="item 10a"):
         TSimulation(read_parameter_file(str(param)), segment_steps=4,
                     device="cpu")
+    # the periodic pure-tree run (ROADMAP item 13) runs: the lattice tables
+    # are built and the steps stay inside the box
     param2, _, _ = _tiny_run(tmp_path, "PeriodicBoundariesOn 1\nBoxSize 1\n")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TSimulation(read_parameter_file(str(param2)), device="cpu")
+    periodic = TSimulation(read_parameter_file(str(param2), ngravs_en=8),
+                           device="cpu", log_dir="")
+    assert periodic.solver.lattice_tables is not None
+    assert periodic.run(max_steps=2) == 2
+    assert float(periodic.p.pos.min()) >= 0 and float(periodic.p.pos.max()) < 1
 
 
 def test_entry_points_need_a_card_unless_asked(tmp_path, monkeypatch):

@@ -189,10 +189,36 @@ def _per_pair_abs(fn, tgt, cand, per_target=()):
     return [o.reshape(nb, s, *o.shape[1:]).abs().sum(1) for o in outs]
 
 
-def _velocity_product_scales(t, tgt, cand, hsml, vpt, vel_all, box):
-    """div v and curl v sum fac (dx . dv) and fac (dx x dv): per target,
-    the sums of |fac dx_a dv_b| over the products each output adds (a
-    single pair's cross product may cancel to far below its products)."""
+# f32 rounding that u = r / h can carry between two programs that compute it
+# the same way: r^2 (three products and two sums, possibly fused), its
+# square root, the reciprocal of h and the product each round once, so two
+# programs' u differ by at most about four units of eps = 2^-23
+U_ROUNDING = 4 * 2.0 ** -23
+
+
+def _kernel_du(u, hinv, k=tsph.K3D):
+    """d wk / du and d dwk / du of the cubic spline, in the dtype of u, from
+    the same polynomials `kernel_wk_dwk` and `_kernel_monomials` use."""
+    hinv3, hinv4 = tsph._hinv_pow(hinv, k)
+    omu = 1.0 - u
+    lo_wk = hinv3 * k.c2 * (3 * u - 2) * u
+    lo_dwk = hinv4 * (2 * k.c3 * u - k.c4)
+    hi_wk = -3 * hinv3 * k.c5 * omu * omu
+    hi_dwk = -2 * hinv4 * k.c6 * omu
+    inside = u < 1.0
+    return (torch.where(inside, torch.where(u < 0.5, lo_wk, hi_wk), 0.0),
+            torch.where(inside, torch.where(u < 0.5, lo_dwk, hi_dwk), 0.0))
+
+
+def _density_pair_terms(t, tgt, cand, hsml, vpt, vel_all, box):
+    """Per pair [nb, G, S], in f64: the velocity products' magnitudes each
+    of div v and curl v adds (|fac dx_a dv_b| summed over the products of
+    the output; a single pair's cross product may cancel to far below its
+    products), and each output's sensitivity to the rounding of u,
+    |d term / du| u U_ROUNDING.  Near the kernel's edge dW/du goes as
+    (1 - u)^2, so one pair at u = 0.9987 turns one unit of rounding in u
+    into about 2u / (1 - u) = 1.6e3 units of its term."""
+    k = tsph.K3D
     valid = (tgt >= 0)[:, :, None] & (cand >= 0)[:, None, :]
     tp = t.pos_s[tgt.clamp(min=0).long()].double()
     sp = t.pos_s[cand.clamp(min=0).long()].double()
@@ -203,19 +229,47 @@ def _velocity_product_scales(t, tgt, cand, hsml, vpt, vel_all, box):
           - vel_all.double()[cand.clamp(min=0).long()][:, None, :, :])
     r = torch.linalg.norm(dx, dim=-1)
     hinv = 1.0 / hsml.double().clamp(min=1e-30)[:, :, None]
-    _, dwk = tsph.kernel_wk_dwk(r * hinv, hinv)
+    u = r * hinv
+    _, dwk = tsph.kernel_wk_dwk(u, hinv)
+    dwk_du, ddwk_du = _kernel_du(u, hinv)
+    live = valid & (u < 1.0)
     m = t.mass_s.double()[cand.clamp(min=0).long()][:, None, :]
-    fac = torch.where(valid & (r > 0), (m * dwk / r.clamp(min=1e-30)).abs(),
-                      0.0)
+    inv_r = torch.where(r > 0, 1.0 / r.clamp(min=1e-30), 0.0)
+    fac = (m * dwk * inv_r).abs()
     p = (dx[..., :, None] * dv[..., None, :]).abs()       # |dx_a dv_b|
-    div = (fac * (p[..., 0, 0] + p[..., 1, 1] + p[..., 2, 2])).sum(-1)
-    rot = torch.stack([(fac * (p[..., a, b] + p[..., b, a])).sum(-1)
-                       for a, b in ((2, 1), (0, 2), (1, 0))], dim=-1)
-    return div, rot
+    div_p = p[..., 0, 0] + p[..., 1, 1] + p[..., 2, 2]
+    rot_p = torch.stack([p[..., a, b] + p[..., b, a]
+                         for a, b in ((2, 1), (0, 2), (1, 0))], dim=-1)
+    hinv3, _ = tsph._hinv_pow(hinv, k)
+    grad = (m * ddwk_du * inv_r).abs()
+    sens = [(m * dwk_du).abs(), (k.norm * dwk_du / hinv3).abs(),
+            (m * (k.ndims * hinv * dwk_du + dwk + u * ddwk_du)).abs(),
+            grad * div_p, grad[..., None] * rot_p]
+    rnd = u * U_ROUNDING
+    zero = lambda a: torch.where(live.reshape(live.shape + (1,) * (
+        a.dim() - live.dim())), a, 0.0)
+    return dict(div=zero(fac * div_p), rot=zero(fac[..., None] * rot_p),
+                sens=[zero(s * (rnd if s.dim() == 3 else rnd[..., None]))
+                      for s in sens])
 
 
-@pytest.mark.parametrize("periodic", [False, True])
-def test_density_pass_matches(periodic):
+def _density_bounds(terms, pair_abs):
+    """Per output: 1e-5 of each target's sum of |terms| (div v and curl v:
+    of its velocity products), plus the sum of the pairs' sensitivities to
+    the rounding of u."""
+    scales = list(pair_abs[:3]) + [terms["div"].sum(2), terms["rot"].sum(2)]
+    return [1e-5 * sc + s.sum(2) for sc, s in zip(scales, terms["sens"])]
+
+
+def _density_misses(want, got, bounds):
+    """Names of the outputs outside their bounds."""
+    names = ("rho", "wngb", "dhsml", "divv", "rotv")
+    return [name for name, w, g, b in zip(names, want, got, bounds)
+            if not np.all(np.abs(g.numpy() - np.asarray(w))
+                          <= b.numpy() + 1e-30)]
+
+
+def _density_case(periodic):
     j, t, tgt, jc, tc, fl, box = _pass_inputs(periodic)
     hsml = np.where(tgt >= 0, fl["hsml_all"][np.maximum(tgt, 0)], 0) \
         .astype(np.float32)
@@ -229,19 +283,44 @@ def test_density_pass_matches(periodic):
         return tsph.density_pass(t, tg, h, v, cands, vel_all, box_size=box,
                                  block_chunk=block_chunk)
 
-    got = run(T(tgt), tc, T(hsml), T(vpt))
-    scales = _per_pair_abs(run, T(tgt), tc.cand, (T(hsml), T(vpt)))
-    scales[3:] = _velocity_product_scales(t, T(tgt), tc.cand, T(hsml),
-                                          T(vpt), vel_all, box)
-    names = ("rho", "wngb", "dhsml", "divv", "rotv")
-    for name, w, g, sc in zip(names, want, got, scales):
-        w = np.asarray(w)
-        assert np.all(np.abs(g.numpy() - w) <= 1e-5 * sc.numpy() + 1e-30), \
-            name
+    terms = _density_pair_terms(t, T(tgt), tc.cand, T(hsml), T(vpt),
+                                vel_all, box)
+    bounds = _density_bounds(terms, _per_pair_abs(run, T(tgt), tc.cand,
+                                                  (T(hsml), T(vpt))))
+    return want, run, (T(tgt), tc, T(hsml), T(vpt)), terms, bounds
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+def test_density_pass_matches(periodic):
+    want, run, args, _, bounds = _density_case(periodic)
+    got = run(*args)
+    assert _density_misses(want, got, bounds) == []
     assert float(got[0].max()) > 0 and float(got[1].max()) > 10
     for bc in (1, 4):
-        again = run(T(tgt), tc, T(hsml), T(vpt), block_chunk=bc)
+        again = run(*args, block_chunk=bc)
         assert all(torch.equal(a, b) for a, b in zip(got, again)), bc
+
+
+def test_density_bound_catches_a_perturbed_pair(monkeypatch):
+    """The bound is an error model, not a slack: one pair's dW made 1e-4
+    too large (relative) moves div v out of it.  The pair is the one whose
+    term stands out most against its target's bound."""
+    want, run, args, terms, bounds = _density_case(False)
+    ratio = terms["div"] / bounds[3][:, :, None].clamp(min=1e-300)
+    b, g, s = np.unravel_index(int(torch.argmax(ratio)), ratio.shape)
+    assert float(ratio[b, g, s]) * 1e-4 > 2
+    orig = tsph.kernel_wk_dwk
+
+    def perturbed(u, hinv, k=tsph.K3D):
+        wk, dwk = orig(u, hinv, k)
+        dwk = dwk.clone()
+        dwk[b, g, s] *= 1 + 1e-4
+        return wk, dwk
+
+    monkeypatch.setattr(tsph, "kernel_wk_dwk", perturbed)
+    nb = args[0].shape[0]
+    assert "divv" in _density_misses(want, run(*args, block_chunk=nb),
+                                     bounds)
 
 
 @pytest.mark.parametrize("limiter,comoving,periodic", [
