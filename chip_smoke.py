@@ -12,12 +12,13 @@ Phases (any failure raises and exits non-zero):
     plain twin `pairwise_eval_torch` on the card at the fused walk's shapes
     (B=128 blocks of G=64 targets, S=4096 source rows, ragged n_src, NaN
     garbage past n_src), potential on and off: K1a (one Newton law), K1b
-    (newton_yukawa), K1bcd (newton_yukawa and three_species in a periodic
-    TreePM box) and K1b+count (bam with the accumulator).  acc and pot
-    within 1e-5 of each target's sum of |terms| (the two sum in different
-    orders), pair counts equal, two launches bit-identical; the launch plan
-    (`launch_plan`: lanes P, cluster C, tile, stages, shared memory),
-    median times and the bound;
+    (newton_yukawa), K1c and K1cd (one Newton law in a periodic box,
+    without and with TreePM), K1bcd (newton_yukawa and three_species in a
+    periodic TreePM box) and K1b+count (bam with the accumulator).  acc
+    and pot within 1e-5 of each target's sum of |terms| (the two sum in
+    different orders), pair counts equal, two launches bit-identical; the
+    launch plan (`launch_plan`: lanes P, cluster C, tile, stages, shared
+    memory), median times and the bound;
  4. slice 1, the open-box path: a synthetic GalaxyCollision-shaped IC (60k
     particles of types 1-5 as BASELINE.md counts them, two Plummer spheres
     on a collision orbit, disk -> gravity 1) written in format 1 with its
@@ -87,7 +88,34 @@ Phases (any failure raises and exits non-zero):
     128 interlaced, relative opening, `run(max_steps=3)` with FORCETEST on
     the PM steps: rms relative error < 3e-2 (tests/test_treepm.py:223),
     momentum rate < 1e-3; the run's largest tabulated evaluation on the
-    card against the CPU within 1e-5 of each target's sum of |terms|.
+    card against the CPU within 1e-5 of each target's sum of |terms|;
+ 9. segments (`Simulation(cfg, segment_steps=K)`) against single stepping
+    from the same IC, in lockstep (the single-stepped run catches up after
+    each `step()` call of the segmented one): slice 1's open box for 30
+    sync points in segments of up to 16, and the box path's TreePM box
+    (FORCETEST off) for 3 sync points, the last two one segment.  Gates:
+    the same sync points (and PM window); positions over the extent and
+    velocities over their largest magnitude within the CPU test's
+    tolerance; on the box every ti_endstep and the force updates equal,
+    on the open box at most 1e-4 of the particles in another timestep bin,
+    each first within 1e-3 (log2) of a bin edge; K1 launched; one full walk
+    from the last drift step's tables (node CMs and source rows drifted
+    since their re-aggregation) with an rms error < 5e-3 against the
+    direct sweep.  Both rates, the segments' counts and the host syncs a
+    segment step (CUDA's sync debug mode) are printed;
+10. the integrator's special modes: (a) MAKEGLASS, 64^3 particles uniform
+    at random in the box path's box (Omega0 1, OmegaLambda 0) with the
+    stock all-Newton wiring and PMGRID 128 interlaced, 5 glass steps:
+    velocities zero, positions in the box, the reversed forces finite,
+    the counts-in-cells variance on 32^3 cells (mean 8) below its start
+    (printed each step), K1cd launched and its largest launch against the
+    twin; (b) FLEXSTEPS and PSEUDOSYMMETRIC on slice 1's IC, 10 steps
+    each: step ends off their own grid and 1 <= present_min_step <=
+    present_max_step; every step a power of two and aphys_old finite and
+    positive somewhere; K1a launched, forces finite; (c) TWODIMS with
+    LONG_X 2, NOGRAVITY: a periodic 256 x 128 gas sheet, 3 steps, the
+    median density within 5% of the mean, 99.9% of the gas within
+    DesNumNgb +- MaxNumNgbDeviation, no K1.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON object with every K1 instance's numbers; the last line is
@@ -144,10 +172,36 @@ RANGES = ("sph_density", "sph_hydro", "lattice_pass")
 # slices 4a (periodic pure tree, Ewald) and 4b (tabulated TreePM)
 EWALD_STEPS = 3
 TAB_STEPS = 3
+# phase 9: segments of up to SEG_CAP sync points against single stepping;
+# the TreePM box over BOX_SEG_STEPS sync points.  The tolerance is the CPU
+# test's (tests/test_torch_segments.py): 2e-3 on an extent of 4 and a
+# largest |v| of 0.1876.  On the open box a drift step's tables (sources
+# moved with the velocities of their last re-aggregation) and a rebuilt
+# tree give forces that differ by up to 1.4e-2 of |a| (segment_study.py:
+# seeds 7, 8 and 9, caps 4 and 16), and dt ~ |a|^-1/2 moves log2 dt by
+# 0.72x that: a particle whose kick lies within SEG_EDGE (log2) of a
+# timestep-bin edge may take the other bin (the study: within 2.5e-3).  The
+# study saw 1-9 such particles at a comparison; the gate is SEG_FLIPS of N.
+# The segment's largest force error against the direct sweep over the run
+# may exceed the single run's by SEG_FORCE_MAX (the study: at most 1.05x);
+# a walk from drifted tables has its largest error below MAX_TREE (the
+# study: drifted 8.6e-3 to 1.6e-2, trees rebuilt there 4.5e-3 to 3.8e-2)
+SEG_CAP, BOX_SEG_STEPS = 16, 3
+SEG_DPOS, SEG_DVEL = 2e-3 / 4, 2e-3 / 0.1876
+SEG_FLIPS, SEG_EDGE = 5e-4, 1e-2
+SEG_FORCE_MAX, MAX_TREE = 1.5, 0.1
+# phase 10: MAKEGLASS at 64^3 (counts in 32^3 cells, mean 8), FLEXSTEPS and
+# PSEUDOSYMMETRIC on slice 1's IC, a TWODIMS LONG_X 2 gas sheet
+GLASS_NSIDE, GLASS_CELLS, GLASS_STEPS = 64, 32, 5
+MODE_STEPS = 10
+SHEET_NX, SHEET_NY, SHEET_STEPS = 256, 128, 3
+SHEET_NGB, SHEET_NGB_DEV = 20, 2
 # synthetic K1 instances: label -> (wiring, n_gravs, periodic, TreePM,
 # accumulator); the synthetic box is SYN_BOX wide, TreePM at PMGRID 32
 SYN_BOX = 100.0
 K1_CASES = {
+    "newton periodic": ("newton", 1, True, False, False),
+    "newton periodic TreePM": ("newton", 1, True, True, False),
     "newton_yukawa": ("newton_yukawa", 2, False, False, False),
     "newton_yukawa periodic TreePM": ("newton_yukawa", 2, True, True, False),
     "three_species periodic TreePM": ("three_species", 3, True, True, False),
@@ -207,7 +261,8 @@ def case_wiring(case: str):
     from ngravs_tpu_torch.config import SimulationConfig
     from ngravs_tpu_torch.models.wiring import build_wiring
     name, ng, periodic, treepm, acc = K1_CASES[case]
-    cfg = SimulationConfig(n_gravs=ng, type_to_grav=(0, 0, 1, 0, 0, 0),
+    cfg = SimulationConfig(n_gravs=ng,
+                           type_to_grav=(0, 0, min(1, ng - 1), 0, 0, 0),
                            wiring=name, box_size=SYN_BOX, periodic=periodic,
                            pmgrid=32 if treepm else 0, ngravs_accumulator=acc)
     w = build_wiring(cfg)
@@ -1553,6 +1608,585 @@ def tabulated_path(dev, card: str):
 
 
 # --------------------------------------------------------------------------
+# phase 9: segments against single stepping
+# --------------------------------------------------------------------------
+
+def count_host_syncs(fn):
+    """fn() with CUDA's sync debug mode on: the number of operations that
+    made the host wait for the card."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def drive(sim, steps: int):
+    """`step()` until `steps` sync points; returns (calls, wall seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calls = 0
+    while sim.step_count < steps:
+        sim.step()
+        calls += 1
+    torch.cuda.synchronize()
+    return calls, time.perf_counter() - t0
+
+
+def bin_edge_distance(sim) -> torch.Tensor:
+    """Each particle's distance in log2 from a timestep-bin edge: its
+    wanted dt over the timebase interval, from the state of its last
+    kick (the step is the power-of-two floor of that ratio)."""
+    from ngravs_tpu_torch.integrate.kdk import compute_timestep_dt
+    dt = compute_timestep_dt(sim.cfg, sim.p, sim.dt_displacement,
+                             sim._soft_t, sim._cosmo()).double()
+    lg = torch.log2(dt / sim.tbi)
+    return (lg - torch.round(lg)).abs()
+
+
+def direct_rel_err(sim, idx) -> torch.Tensor:
+    """Relative error of the stored accelerations of particles `idx`
+    against the direct sweep at the current positions (right for particles
+    whose forces were computed at this sync point)."""
+    from ngravs_tpu_torch.ops.direct import direct_forces
+    p = sim.p
+    fsoft = torch.as_tensor(sim.force_soft, device=p.device)[p.ptype.long()]
+    acc_d, _ = direct_forces(sim.wiring, p.pos, p.mass, p.grav, fsoft,
+                             tgt_idx=idx.to(torch.int32), chunk=1024,
+                             want_pot=False)
+    acc_d = acc_d * sim.units.G
+    return torch.linalg.norm(p.accel[idx] - acc_d, dim=1) \
+        / torch.clamp(torch.linalg.norm(acc_d, dim=1), min=1e-30)
+
+
+def record_tree_modes(sim):
+    """Wrap `sim._tree_maintain` to record each segment step's tree mode
+    (0 drift, 1 refresh, 2 rebuild; the call that builds a segment's first
+    tree passes no tree and is not a step), and the state, tree and tables
+    of the last drift step.  Returns (modes, [state, (tree, tables)])."""
+    modes, drifted = [], []
+    maintain = sim._tree_maintain
+
+    def spy(p, mode, tree, wt, dd):
+        out = maintain(p, mode, tree, wt, dd)
+        if tree is not None:
+            modes.append(mode)
+            if mode == 0:
+                drifted[:] = [p, out]
+        return out
+    sim._tree_maintain = spy
+    return modes, drifted
+
+
+def compare_state(single, seg, with_pm: bool, near, flipped,
+                  forces: bool) -> dict:
+    """Two runs at one sync point: the timeline (and PM window), the
+    particles whose step histories parted (another ti_endstep or
+    ti_begstep: another bin now, or since the last comparison) and the
+    least bin-edge distance of their kicks in the single run since the
+    runs last agreed on them (`near`, updated by the caller),
+    positions over the extent and velocities over their largest magnitude,
+    and (`forces`, for an open box) the forces of the particles that both
+    runs kicked here: each run's error against the direct sweep, the runs'
+    relative difference, and the particle where that difference is
+    largest (|a| over the median |a|, whether it was ever in another
+    bin)."""
+    same = (single.step_count, single.ti_current) == \
+        (seg.step_count, seg.ti_current)
+    if with_pm:
+        same = same and (single.pm_ti_begstep, single.pm_ti_endstep) == \
+            (seg.pm_ti_begstep, seg.pm_ti_endstep)
+    parted = (single.p.ti_endstep != seg.p.ti_endstep) \
+        | (single.p.ti_begstep != seg.p.ti_begstep)
+    diff = torch.nonzero(parted).squeeze(1)
+    flipped[diff] = True
+    ext = float((single.p.pos.amax(0) - single.p.pos.amin(0)).max())
+    r = dict(sync=seg.step_count, same=same, n_diff=int(diff.numel()),
+             edge=float(near[diff].max()) if diff.numel() else 0.0,
+             dpos=float((single.p.pos - seg.p.pos).abs().max()) / ext,
+             dvel=float((single.p.vel - seg.p.vel).abs().max())
+             / float(single.p.vel.abs().max()))
+    kicked = (single.p.ti_begstep == single.ti_current) \
+        & (seg.p.ti_begstep == seg.ti_current)
+    idx = torch.nonzero(kicked).squeeze(1)
+    r["n_kicked"] = int(idx.numel()) if forces else 0
+    if r["n_kicked"]:
+        e1, e2 = direct_rel_err(single, idx), direct_rel_err(seg, idx)
+        a1, a2 = single.p.accel[idx], seg.p.accel[idx]
+        amag = torch.linalg.norm(a1, dim=1)
+        dacc = torch.linalg.norm(a1 - a2, dim=1) \
+            / torch.clamp(amag, min=1e-30)
+        k = int(torch.argmax(dacc))
+        r.update(
+            err_single=(float(torch.sqrt(torch.mean(e1 * e1))),
+                        float(e1.max())),
+            err_seg=(float(torch.sqrt(torch.mean(e2 * e2))), float(e2.max())),
+            dacc=float(dacc[k]),
+            worst=dict(particle=int(idx[k]),
+                       a_over_median=float(amag[k] / torch.median(amag)),
+                       ever_flipped=bool(flipped[idx[k]]),
+                       err_single=float(e1[k]), err_seg=float(e2[k])))
+    # the largest difference over all particles, whenever computed
+    amag_all = torch.linalg.norm(single.p.accel, dim=1)
+    d_all = torch.linalg.norm(single.p.accel - seg.p.accel, dim=1) \
+        / torch.clamp(amag_all, min=1e-30)
+    k = int(torch.argmax(d_all))
+    r["dacc_all"] = (float(d_all[k]), dict(
+        particle=k, same_kick=bool(single.p.ti_begstep[k]
+                                   == seg.p.ti_begstep[k]),
+        ever_flipped=bool(flipped[k]),
+        a_over_median=float(amag_all[k] / torch.median(amag_all))))
+    return r
+
+
+def segment_pair(label: str, make, steps: int, cap: int, card: str,
+                 with_pm: bool, exact: bool, gates: bool = True):
+    """A run with `segment_steps=cap` and the same IC single-stepped, in
+    lockstep: after each `step()` call of the segmented run the single one
+    catches up to the same sync point, one sync point a `step()`, and the
+    two are compared (`compare_state`).  Gates at every comparison: the
+    same sync points (and PM window); positions over the extent and
+    velocities over their largest magnitude within the CPU test's
+    tolerance (SEG_DPOS, SEG_DVEL); on an open box (not `with_pm`), on the
+    particles both runs kicked there, the segment's forces against the
+    direct sweep with an rms below RMS_TREE, and over the run a largest
+    error within SEG_FORCE_MAX of the single run's.  `exact`: every
+    particle's ti_endstep and ti_begstep and the force updates equal too.
+    Otherwise a particle may take another timestep bin when the tree
+    maintenance moves its force across a bin edge: at most SEG_FLIPS of N
+    with parted histories at a comparison, and each of them, whenever
+    seen, had a kick within SEG_EDGE (log2) of an edge in the single run
+    since the two runs last agreed on it.  A particle that parts and
+    rejoins (the same last kick again) between two comparisons shows
+    only in positions and velocities.  Prints both
+    rates, the segments' counts, the tree modes and the host syncs a
+    segment step (a third run's first segment, under CUDA's sync debug
+    mode).  `gates=False` prints every comparison and raises on none.
+    Returns the segmented run, its K1 counts, the state, tree and tables
+    of its last drift step, and the comparisons."""
+    from ngravs_tpu_torch.ops import pairwise
+    seg, single = make(cap), make(1)
+    modes, drifted = record_tree_modes(seg)
+    n = seg.p.n
+    near = torch.full((n,), math.inf, dtype=torch.float64,
+                      device=seg.p.pos.device)
+    flipped = torch.zeros(n, dtype=torch.bool, device=seg.p.pos.device)
+    wall_b = wall_a = 0.0
+    calls = 0
+    counts = {}
+    rows = []
+    while seg.step_count < steps:
+        pairwise.reset_counts()
+        k, w = drive(seg, seg.step_count + 1)
+        counts = {key: counts.get(key, 0) + v
+                  for key, v in pairwise.pairwise_eval.counts.items()}
+        calls, wall_b = calls + k, wall_b + w
+        while single.step_count < seg.step_count:
+            wall_a += drive(single, single.step_count + 1)[1]
+            kicked = single.p.ti_begstep == single.ti_current
+            near = torch.where(kicked, torch.minimum(near,
+                                                     bin_edge_distance(single)),
+                               near)
+        r = compare_state(single, seg, with_pm, near, flipped,
+                          not with_pm)
+        rows.append(r)
+        if not gates:
+            print(f"{label} cap {cap} comparison: {r}", flush=True)
+        bad = not r["same"] or r["dpos"] > SEG_DPOS or r["dvel"] > SEG_DVEL
+        if r["n_kicked"]:
+            bad = bad or not r["err_seg"][0] < RMS_TREE
+        if exact:
+            bad = bad or r["n_diff"] or \
+                single.num_force_updates != seg.num_force_updates
+        else:
+            bad = bad or r["n_diff"] > SEG_FLIPS * n or r["edge"] > SEG_EDGE
+        if bad and gates:
+            raise AssertionError(
+                f"{label}: at sync point {seg.step_count}: {r}; force "
+                f"updates {single.num_force_updates} single vs "
+                f"{seg.num_force_updates} segmented")
+        # a particle the runs agree on starts a new history
+        agree = (single.p.ti_endstep == seg.p.ti_endstep) \
+            & (single.p.ti_begstep == seg.p.ti_begstep)
+        near = torch.where(agree, math.inf, near)
+    probe = make(cap)
+    probe.step()
+    before = probe.step_count
+    syncs = count_host_syncs(probe.step)
+    per_step = syncs / max(probe.step_count - before, 1)
+    probe.close()
+    with_kicks = [r for r in rows if r["n_kicked"]]
+    worst = max(with_kicks, key=lambda r: r["dacc"]) if with_kicks else None
+    print(f"{label} [{card}]: {seg.step_count} sync points to "
+          f"t={seg.time:.6g}; segmented {seg.num_force_updates} particle-"
+          f"steps in {wall_b:.2f} s = {seg.num_force_updates / wall_b:.1f} "
+          f"particle-steps/s over {calls} step() calls ({seg.seg_counts}), "
+          f"single-stepped {single.num_force_updates} in {wall_a:.2f} s = "
+          f"{single.num_force_updates / wall_a:.1f} particle-steps/s; host "
+          f"syncs a segment step {per_step:.1f} ({syncs} in a segment of "
+          f"{probe.step_count - before} steps; the loop's own reads "
+          f"{seg.seg_counts['host_reads']} in {seg.seg_counts['steps']} "
+          f"steps); K1 launches segmented {counts}; tree modes (drift, "
+          f"refresh, build) "
+          + "".join("dfb"[m] for m in modes), flush=True)
+    print(f"{label} vs single stepping [{card}]: {len(rows)} comparisons, "
+          f"the same sync points{' and PM window' if with_pm else ''} at "
+          f"each; step histories parted for at most "
+          f"{max(r['n_diff'] for r in rows)} particles at a comparison "
+          f"({int(flipped.sum())} ever), their least bin-edge distance "
+          f"since agreeing at most "
+          f"{max(r['edge'] for r in rows):.3e} (log2); max|dpos| / extent "
+          f"{max(r['dpos'] for r in rows):.3e}, max|dvel| / max|v| "
+          f"{max(r['dvel'] for r in rows):.3e}" + (
+              f"; forces of the particles kicked at a comparison vs "
+              f"direct, rms / max, segmented "
+              f"{max(r['err_seg'][0] for r in with_kicks):.3e} / "
+              f"{max(r['err_seg'][1] for r in with_kicks):.3e}, single "
+              f"{max(r['err_single'][0] for r in with_kicks):.3e} / "
+              f"{max(r['err_single'][1] for r in with_kicks):.3e}; largest "
+              f"relative force difference between the runs "
+              f"{worst['dacc']:.3e} at sync point {worst['sync']} "
+              f"({worst['worst']})" if worst else "")
+          + f"; over every particle, the accelerations perhaps from "
+          f"different kicks, largest relative difference "
+          f"{max(r['dacc_all'][0] for r in rows):.3e} "
+          f"({max(rows, key=lambda r: r['dacc_all'][0])['dacc_all'][1]})",
+          flush=True)
+    single.close()
+    if with_kicks and gates and max(r["err_seg"][1] for r in with_kicks) \
+            > SEG_FORCE_MAX * max(r["err_single"][1] for r in with_kicks):
+        raise AssertionError(f"{label}: the segment's largest force error "
+                             "exceeds SEG_FORCE_MAX x the single run's")
+    return seg, counts, drifted, rows
+
+
+def drifted_pass(sim, drifted, card: str, gates: bool = True):
+    """One full walk from the last drift-mode step's tree and packed
+    tables (the state mid-cadence: node CMs and source rows drifted since
+    their last re-aggregation) and one from a tree rebuilt at the same
+    positions, each against the direct sweep there.  Gates: the drifted
+    pass's rms below RMS_TREE and its largest error below MAX_TREE
+    (`gates=False`: none).  Returns both (rms, max)
+    pairs."""
+    from ngravs_tpu_torch.ops.direct import direct_forces
+    p, (tree, wt) = drifted
+    solver = sim.solver
+    walk = solver._walk(want_pot=False)
+    opening = "relative" if sim.cfg.type_of_opening_criterion == 1 else "bh"
+    fsoft = torch.as_tensor(sim.force_soft, device=p.device)[p.ptype.long()]
+    acc_d, _ = direct_forces(sim.wiring, p.pos, p.mass, p.grav, fsoft,
+                             chunk=1024, want_pot=False)
+    acc_d = acc_d * solver.G
+    errs = []
+    for t, w in ((tree, wt), sim._tree_maintain(p, 2, None, None, None)):
+        res = walk(t, torch.arange(p.n, device=p.device),
+                   opening_override=opening, tables=w)
+        if bool(res.overflow):
+            raise AssertionError("the drifted-tables pass overflowed")
+        acc = torch.empty_like(p.accel)
+        acc[t.order.long()] = res.acc * solver.G
+        rel = torch.linalg.norm(acc - acc_d, dim=1) \
+            / torch.clamp(torch.linalg.norm(acc_d, dim=1), min=1e-12)
+        errs.append((float(torch.sqrt(torch.mean(rel * rel))),
+                     float(rel.max())))
+    (rms, mx), (rms_b, mx_b) = errs
+    print(f"drifted-tables pass [{card}]: {p.n} targets from the segment's "
+          f"last drift step, rel err vs direct rms {rms:.3e} max {mx:.3e}; "
+          f"a tree rebuilt there rms {rms_b:.3e} max {mx_b:.3e}",
+          flush=True)
+    if gates and (not rms < RMS_TREE or not mx < MAX_TREE):
+        raise AssertionError(f"drifted-tables pass: rms {rms}, max {mx} "
+                             f"against the rebuilt tree's {mx_b}")
+    return errs
+
+
+def open_box_segments(dev, card: str, seed: int = 7, cap: int = SEG_CAP,
+                      gates: bool = True):
+    """Phase 9a: slice 1's open box (IC seed `seed`) with segments of up to
+    `cap` sync points against single stepping over MAIN_STEPS sync points,
+    then the drifted-tables pass.  Returns the comparisons."""
+    from ngravs_tpu_torch.config import read_parameter_file
+    from ngravs_tpu_torch.integrate.runner import Simulation
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_segments", str(seed))
+    os.makedirs(run_dir, exist_ok=True)
+    cfg = read_parameter_file(write_galaxy_collision(run_dir, seed),
+                              direct_crossover=1000, tree_depth=12)
+    make_galaxy = lambda k: Simulation(
+        cfg, device=dev, segment_steps=k,
+        log_dir=os.path.join(run_dir, f"galaxy_{k}"))
+    seg, counts, drifted, rows = segment_pair(
+        f"segments, open box (seed {seed}, cap {cap})", make_galaxy,
+        MAIN_STEPS, cap, card, False, False, gates)
+    if counts.get("K1a", 0) <= 0 or not drifted:
+        raise AssertionError("the open box's segments launched no K1a or "
+                             "took no drift step")
+    errs = drifted_pass(seg, drifted, card, gates)
+    seg.close()
+    return rows, errs
+
+
+def segment_paths(dev, card: str):
+    """Phase 9: slice 1's open box and the box path's TreePM box, each
+    segmented and single-stepped from the same IC."""
+    from ngravs_tpu_torch.config import read_parameter_file
+    from ngravs_tpu_torch.integrate.runner import Simulation
+    open_box_segments(dev, card)
+    stamp("phase 9a (open-box segments)")
+
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_segments")
+    box_dir = os.path.join(run_dir, "box")
+    os.makedirs(box_dir, exist_ok=True)
+    box_cfg = read_parameter_file(write_cosmo_box(box_dir),
+                                  pmgrid=BOX_PMGRID, n_gravs=2,
+                                  wiring="newton_yukawa", pm_interlace=True)
+    make_box = lambda cap: Simulation(
+        box_cfg, device=dev, segment_steps=cap,
+        log_dir=os.path.join(box_dir, f"run_{cap}"))
+    # the first sync point is a general step, the next two one segment
+    seg, counts, _, _ = segment_pair("segments, TreePM box", make_box,
+                                     BOX_SEG_STEPS, BOX_SEG_STEPS - 1, card,
+                                     True, True)
+    if sum(v for k, v in counts.items() if k.startswith("K1bcd")) <= 0:
+        raise AssertionError("the box's segments launched no K1bcd")
+    stamp("phase 9b (TreePM-box segments)")
+
+
+# --------------------------------------------------------------------------
+# phase 10: the integrator's special modes
+# --------------------------------------------------------------------------
+
+def write_glass_box(run_dir: str, seed: int = 5) -> str:
+    """GLASS_NSIDE^3 particles uniform at random in the box path's box
+    (Omega0 1, OmegaLambda 0: tests/test_parallel.py:709-713), all of type
+    1 (gravity 0, the stock all-Newton wiring); returns the
+    parameterfile."""
+    from ngravs_tpu_torch.config import SimulationConfig
+    from ngravs_tpu_torch.io.gadget_format import (SnapshotData,
+                                                   SnapshotHeader,
+                                                   write_snapshot)
+    from ngravs_tpu_torch.units import set_units
+    box, n = BOX_SIZE, GLASS_NSIDE ** 3
+    units = set_units(SimulationConfig(comoving_integration=True))
+    rng = np.random.default_rng(seed)
+    m = 3 * units.hubble ** 2 / (8 * math.pi * units.G) * box ** 3 / n
+    h = SnapshotHeader()
+    h.npart = np.array([0, n, 0, 0, 0, 0], np.int32)
+    h.npart_total = h.npart.astype(np.uint32)
+    h.mass = np.array([0.0, m, 0.0, 0.0, 0.0, 0.0])
+    h.time, h.redshift, h.box_size = 0.1, 9.0, box
+    h.omega0, h.omega_lambda, h.hubble_param = 1.0, 0.0, 0.7
+    ic = os.path.join(run_dir, "glass.IC")
+    write_snapshot(ic, SnapshotData(
+        header=h, pos=rng.uniform(0, box, (n, 3)).astype(np.float32),
+        vel=np.zeros((n, 3), np.float32),
+        pid=np.arange(1, n + 1, dtype=np.uint32),
+        mass=np.full(n, m, np.float32), ptype=np.ones(n, np.int32)))
+    soft = box / BOX_NSIDE / 30
+    return write_param(os.path.join(run_dir, "glass.param"), {
+        "InitCondFile": ic, "OutputDir": run_dir,
+        "SnapshotFileBase": "snapshot", "ICFormat": 1, "SnapFormat": 1,
+        "ComovingIntegrationOn": 1, "PeriodicBoundariesOn": 1,
+        "Omega0": 1.0, "OmegaLambda": 0.0, "OmegaBaryon": 0.0,
+        "HubbleParam": 0.7, "BoxSize": box,
+        "TimeBegin": 0.1, "TimeMax": 0.2, "TimeBetSnapshot": 0.5,
+        "TimeOfFirstSnapshot": 0.5, "TimeBetStatistics": 0.5,
+        "ErrTolIntAccuracy": 0.025, "MaxSizeTimestep": 0.02,
+        "ErrTolTheta": 0.5, "TypeOfOpeningCriterion": 1,
+        "ErrTolForceAcc": 0.005, "TreeDomainUpdateFrequency": 0.1,
+        "SofteningHalo": soft,
+    })
+
+
+def cic_variance(pos, box: float, cells: int) -> float:
+    """Variance of the particle counts in cells^3 equal cells."""
+    idx = torch.clamp((pos / box * cells).long(), 0, cells - 1)
+    flat = (idx[:, 0] * cells + idx[:, 1]) * cells + idx[:, 2]
+    counts = torch.bincount(flat, minlength=cells ** 3).double()
+    return float(counts.var(unbiased=False))
+
+
+def glass_path(dev, card: str):
+    """Phase 10a: MAKEGLASS in the periodic comoving TreePM box; its K1
+    counts and the inputs of every K1 launch."""
+    import ngravs_tpu_torch.integrate.runner as runner
+    from ngravs_tpu_torch.config import read_parameter_file
+    from ngravs_tpu_torch.ops.pairwise import pairwise_eval
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_glass")
+    os.makedirs(run_dir, exist_ok=True)
+    cfg = read_parameter_file(write_glass_box(run_dir), pmgrid=BOX_PMGRID,
+                              pm_interlace=True, make_glass=1)
+    sim = runner.Simulation(cfg, device=dev)
+    n, box = sim.p.n, cfg.box_size
+    if n != GLASS_NSIDE ** 3 or sim.solver.treepm is None \
+            or len(sim.wiring.unique_laws()) != 1:
+        raise AssertionError("the glass path must run one-law TreePM at "
+                             "64^3")
+    launched = []
+    sim.solver.pair_eval = record_launches(pairwise_eval, launched)
+    forces = []
+    displace = runner.glass_step
+
+    def spy(cfg_, units, p):
+        a = p.accel + p.accel_pm
+        forces.append((bool(torch.isfinite(a).all()),
+                       float(a.norm(dim=1).max())))
+        return displace(cfg_, units, p)
+    runner.glass_step = spy
+    try:
+        var = [cic_variance(sim.p.pos, box, GLASS_CELLS)]
+        steps, wall, counts = 0, 0.0, {}
+        for _ in range(GLASS_STEPS):
+            k, w, c = run_path(sim, 1)
+            steps, wall = steps + k, wall + w
+            counts = {key: counts.get(key, 0) + c.get(key, 0)
+                      for key in set(counts) | set(c)}
+            var.append(cic_variance(sim.p.pos, box, GLASS_CELLS))
+    finally:
+        runner.glass_step = displace
+    p = sim.p
+    inside = bool(((p.pos >= 0) & (p.pos < box)).all())
+    print(f"glass path [{card}]: {steps} glass steps of {n} particles in "
+          f"{wall:.2f} s, K1 launches {counts}, PM window "
+          f"({sim.pm_ti_begstep}, {sim.pm_ti_endstep}), ti {sim.ti_current};"
+          f" counts-in-cells variance on {GLASS_CELLS}^3 (mean "
+          f"{n / GLASS_CELLS ** 3:g}) by step: "
+          + ", ".join(f"{v:.4f}" for v in var)
+          + "; max |reversed force| by step: "
+          + ", ".join(f"{f:.4g}" for _, f in forces)
+          + f"; velocities zero {not bool(p.vel.any())}, positions in "
+          f"[0, box) {inside}", flush=True)
+    if counts.get("K1cd", 0) <= 0:
+        raise AssertionError(f"the glass path never launched K1cd: {counts}")
+    if bool(p.vel.any()) or not inside or not all(ok for ok, _ in forces) \
+            or len(forces) != GLASS_STEPS:
+        raise AssertionError("glass gates: velocities, positions or forces")
+    if not var[-1] < var[0]:
+        raise AssertionError(f"the glass did not smooth: variance {var}")
+    sim.close()
+    return sum(counts.values()), launched
+
+
+def special_mode_runs(dev, card: str):
+    """Phase 10b: FLEXSTEPS and PSEUDOSYMMETRIC on slice 1's IC."""
+    from ngravs_tpu_torch.config import read_parameter_file
+    from ngravs_tpu_torch.integrate.runner import Simulation
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_modes")
+    os.makedirs(run_dir, exist_ok=True)
+    param = write_galaxy_collision(run_dir)
+    for mode in ("flexsteps", "pseudosymmetric"):
+        cfg = read_parameter_file(param, direct_crossover=1000, tree_depth=12,
+                                  **{mode: True})
+        sim = Simulation(cfg, device=dev,
+                         log_dir=os.path.join(run_dir, mode))
+        steps, wall, counts = run_path(sim, MODE_STEPS)
+        p = sim.p
+        end = p.ti_endstep.long()
+        step = end - p.ti_begstep.long()
+        finite = all(bool(torch.isfinite(getattr(p, k)).all())
+                     for k in ("pos", "vel", "accel"))
+        line = (f"{mode} [{card}]: {steps} steps to t={sim.time:.6g}, "
+                f"{sim.num_force_updates} particle-steps in {wall:.2f} s, K1 "
+                f"launches {counts}, forces finite {finite}")
+        if mode == "flexsteps":
+            off = int(((end % step) != 0).sum())
+            line += (f"; step ends off their own grid {off}; present steps "
+                     f"{sim.present_min_step} <= {sim.present_max_step}")
+            ok = off > 0 and 1 <= sim.present_min_step \
+                <= sim.present_max_step
+        else:
+            pow2 = bool(((step > 0) & ((step & (step - 1)) == 0)).all())
+            a_old = p.aphys_old
+            line += (f"; every step a power of two {pow2}; aphys_old "
+                     f"finite {bool(torch.isfinite(a_old).all())}, max "
+                     f"{float(a_old.max()):.4g}")
+            ok = pow2 and bool(torch.isfinite(a_old).all()) \
+                and float(a_old.max()) > 0
+        print(line, flush=True)
+        if not (ok and finite and counts.get("K1a", 0) > 0):
+            raise AssertionError(f"{mode} gates failed")
+        sim.close()
+
+
+def write_sheet(run_dir: str, seed: int = 9) -> str:
+    """A 2-D gas sheet: SHEET_NX x SHEET_NY particles on a jittered grid
+    of a periodic LONG_X 2 box (BoxSize 1), u = 1; returns the
+    parameterfile."""
+    from ngravs_tpu_torch.io.gadget_format import (SnapshotData,
+                                                   SnapshotHeader,
+                                                   write_snapshot)
+    nx, ny = SHEET_NX, SHEET_NY
+    n = nx * ny
+    rng = np.random.default_rng(seed)
+    gx, gy = np.meshgrid(np.arange(nx), np.arange(ny), indexing="ij")
+    d = 2.0 / nx
+    pos = np.zeros((n, 3))
+    pos[:, 0] = (gx.ravel() + 0.5) * d
+    pos[:, 1] = (gy.ravel() + 0.5) * d
+    pos[:, :2] += rng.normal(0, 0.05 * d, (n, 2))
+    pos[:, 0] = np.mod(pos[:, 0], 2.0)
+    pos[:, 1] = np.mod(pos[:, 1], 1.0)
+    h = SnapshotHeader()
+    h.npart = np.array([n, 0, 0, 0, 0, 0], np.int32)
+    h.npart_total = h.npart.astype(np.uint32)
+    ic = os.path.join(run_dir, "sheet.IC")
+    write_snapshot(ic, SnapshotData(
+        header=h, pos=pos.astype(np.float32),
+        vel=rng.normal(0, 0.01, (n, 3)).astype(np.float32) * [1, 1, 0],
+        pid=np.arange(1, n + 1, dtype=np.uint32),
+        mass=np.full(n, 2.0 / n, np.float32), ptype=np.zeros(n, np.int32),
+        u=np.ones(n, np.float32)))
+    return write_param(os.path.join(run_dir, "sheet.param"), {
+        "InitCondFile": ic, "OutputDir": run_dir,
+        "SnapshotFileBase": "snapshot", "ICFormat": 1, "SnapFormat": 1,
+        "PeriodicBoundariesOn": 1, "BoxSize": 1.0,
+        "TimeBegin": 0.0, "TimeMax": 1.0, "TimeBetSnapshot": 1.0,
+        "TimeOfFirstSnapshot": 1.0, "TimeBetStatistics": 1.0,
+        "ErrTolIntAccuracy": 0.025, "MaxSizeTimestep": 0.001,
+        "GravityConstantInternal": 1.0, "DesNumNgb": SHEET_NGB,
+        "MaxNumNgbDeviation": SHEET_NGB_DEV, "SofteningGas": 0.001,
+    })
+
+
+def sheet_path(dev, card: str):
+    """Phase 10c: TWODIMS with LONG_X 2, NOGRAVITY, a periodic gas sheet."""
+    from ngravs_tpu_torch.config import read_parameter_file
+    from ngravs_tpu_torch.integrate.runner import Simulation
+    from ngravs_tpu_torch.ops import pairwise
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_sheet")
+    os.makedirs(run_dir, exist_ok=True)
+    cfg = read_parameter_file(write_sheet(run_dir), twodims=True,
+                              long_x=2.0, no_gravity=True)
+    sim = Simulation(cfg, device=dev)
+    n = sim.n_gas
+    h0 = float(sim.sph.hsml[0])
+    steps, wall, counts = run_path(sim, SHEET_STEPS)
+    s = sim.sph
+    wngb = s.num_ngb[:n]
+    in_window = float(((wngb - SHEET_NGB).abs()
+                       <= SHEET_NGB_DEV).double().mean())
+    sigma = float(sim.p.mass[:n].double().sum()) / (2.0 * 1.0)
+    med = float(s.density[:n].double().median())
+    p = sim.p.pos
+    inside = bool(((p[:, 0] >= 0) & (p[:, 0] < 2) & (p[:, 1] >= 0)
+                   & (p[:, 1] < 1) & (p[:, 2] == 0)).all())
+    print(f"2-D sheet [{card}]: {n} gas particles, first Hsml guess "
+          f"{h0:.5g}, {steps} steps in {wall:.2f} s, K1 launches {counts}; "
+          f"weighted neighbours within {SHEET_NGB} +- {SHEET_NGB_DEV} for "
+          f"{in_window:.5%} of the gas (range {float(wngb.min()):.3f}-"
+          f"{float(wngb.max()):.3f}); median density / mean {med / sigma:.5f};"
+          f" inside the 2 x 1 sheet {inside}", flush=True)
+    if counts or n != SHEET_NX * SHEET_NY:
+        raise AssertionError("the sheet must run SPH alone")
+    if not (in_window >= 0.999 and abs(med / sigma - 1) < 0.05 and inside):
+        raise AssertionError("2-D sheet gates failed")
+    sim.close()
+
+
+# --------------------------------------------------------------------------
 
 def kernel_entry(name: str, launches: int, nums: dict, errs) -> dict:
     return {"name": name, "route": "cuda",
@@ -1614,6 +2248,15 @@ def main() -> int:
     stamp("slice 4a (Ewald)")
     tabulated_path(dev, card)
     stamp("slice 4b (tabulated TreePM)")
+    segment_paths(dev, card)
+    launches5, launched = glass_path(dev, card)
+    glass_batch = check_largest_launch("kernel (glass-path batch)", launched)
+    del launched
+    stamp("phase 10a (glass)")
+    special_mode_runs(dev, card)
+    stamp("phase 10b (FLEXSTEPS, PSEUDOSYMMETRIC)")
+    sheet_path(dev, card)
+    stamp("phase 10c (TWODIMS, LONG_X)")
 
     entries = [kernel_entry("K1a (slice 1 path, open box, one Newton law)",
                             launches1, galaxy_batch,
@@ -1629,8 +2272,12 @@ def main() -> int:
                kernel_entry(f"{ewald_batch['name']} (slice 4a path, "
                             "newton_yukawa periodic pure tree, beside the "
                             "lattice pass)", launches4, ewald_batch,
-                            [ewald_batch["max_abs_err"], ewald_err])]
-    path_counts = {box_batch["name"]: launches2 + launches3}
+                            [ewald_batch["max_abs_err"], ewald_err]),
+               kernel_entry(f"{glass_batch['name']} (glass path, one Newton "
+                            "law periodic TreePM)", launches5, glass_batch,
+                            [glass_batch["max_abs_err"]])]
+    path_counts = {box_batch["name"]: launches2 + launches3,
+                   glass_batch["name"]: launches5}
     for case, rep in synthetic.items():
         for want_pot, r in rep.items():
             entries.append(kernel_entry(

@@ -9,16 +9,20 @@ Port of `ngravs_tpu/integrate/kdk.py`, Newtonian or comoving, with gas:
   * dt rule — timestep.c:427 `get_timestep`, criterion 0, with the
               comoving prefactors of timestep.c:48-61 and the Courant limit
 
+  * glass   — timestep.c:85-133 under MAKEGLASS (`glass_step`)
+
 Every operation is a masked update over whole tensors; the active set is
 `ti_endstep == ti_current`.  The integer-step bookkeeping (power-of-two
 floor, SYNCHRONIZATION alignment rule, midpoint kick windows) is the
-reference's.  Scalars are f32 0-d tensors computed in the JAX package's
-order, so both packages put a particle in the same bin.  The FLEXSTEPS /
-PSEUDOSYMMETRIC variants wait for a later slice (ROADMAP Queue 1 item 17).
+reference's, and so are its variants: FLEXSTEPS' per-particle phase grid
+and PSEUDOSYMMETRIC's probabilistic halving and doubling of a step.
+Scalars are f32 0-d tensors computed in the JAX package's order, so both
+packages put a particle in the same bin; timeline integers stay int32.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -38,9 +42,10 @@ class CosmoFactors(NamedTuple):
 
 
 def cosmo_factors(cfg, units, time_now, device="cpu") -> CosmoFactors:
-    """f32 0-d tensors on `device`; all ones for Newtonian runs."""
+    """f32 0-d tensors on `device`; all ones for Newtonian runs.
+    `time_now` may be an f32 tensor (a segment's device-side time)."""
     if cfg.comoving_integration:
-        a = torch.tensor(time_now, dtype=torch.float32, device=device)
+        a = torch.as_tensor(time_now, dtype=torch.float32, device=device)
         h2 = (cfg.omega0 / (a * a * a)
               + (1 - cfg.omega0 - cfg.omega_lambda) / (a * a)
               + cfg.omega_lambda)
@@ -118,25 +123,126 @@ def compute_timestep_ticks(cfg, p, dt_displacement: float,
     return pow2_floor_i32(ti_step)
 
 
+def _f32(v, device) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32, device=device)
+
+
+def glass_step(cfg, units, p):
+    """MAKEGLASS (timestep.c:85-133): reversed gravity (tree and PM)
+    displaces every particle toward uniformity, the largest displacement
+    clamped to the mean interparticle spacing; velocities and
+    accelerations are zeroed; periodic positions wrap."""
+    acc = -(p.accel + p.accel_pm)
+    disp_fac = 2.0 / (3 * units.hubble ** 2)
+    disp = torch.sqrt(torch.sum(acc * acc, dim=-1)) * disp_fac
+    dmax = torch.amax(disp)
+    rho_crit_mean = cfg.omega0 * 3 * units.hubble ** 2 \
+        / (8 * math.pi * units.G)
+    dmean = (p.mass[0] / _f32(max(rho_crit_mean, 1e-37), p.device)) \
+        ** (1.0 / 3)
+    fac = torch.where(dmax > dmean, dmean / dmax, 1.0)
+    pos = p.pos + fac * acc * disp_fac
+    if cfg.periodic and cfg.box_size > 0:
+        pos = torch.remainder(pos, cfg.box_size)
+    return p.replace(pos=pos, vel=torch.zeros_like(p.vel),
+                     accel=torch.zeros_like(p.accel),
+                     accel_pm=torch.zeros_like(p.accel_pm))
+
+
+def _flex_align(ti_step, ti_endstep, flex):
+    """FLEXSTEPS (timestep.c:196-199): a step ends on the particle's
+    group-phase grid of spacing ti_step, so sync points spread out
+    instead of piling up at powers of two.  `flex` = (flex_grp [N] int32,
+    present_min_step, present_max_step)."""
+    flex_grp, pmin_step, pmax_step = flex
+    ti_grp = flex_grp % max(int(pmax_step), 1)
+    ti_grp = (ti_grp // max(int(pmin_step), 1)) * int(pmin_step)
+    base = ti_endstep + ti_grp
+    ti_step = ((base + ti_step) // ti_step) * ti_step - base
+    return torch.clamp(ti_step, min=1)
+
+
+def _pseudosymmetric(cfg, p, active, ti_step, dt_displacement, soft_table,
+                     cf: CosmoFactors, rnd_table):
+    """PSEUDOSYMMETRIC (timestep.c:202-238), non-gas particles only: the
+    physical acceleration at the end of the proposed step, predicted to
+    first order; where it would give another step, THIS step halves or
+    doubles with a probability that makes the step sequence
+    time-symmetric on average.  Returns (ti_step, aphys_old')."""
+    dev = p.device
+    old_step = p.ti_endstep - p.ti_begstep
+    acc_p = (p.accel + p.accel_pm) * cf.fac1
+    aphys = torch.sqrt(torch.sum(acc_p * acc_p, dim=-1))
+    slope = (aphys - p.aphys_old) \
+        / torch.clamp(old_step, min=1).to(aphys.dtype)
+    apred = aphys + slope * ti_step.to(aphys.dtype)
+    eligible = (p.ptype != 0) & (old_step > 0) & active \
+        & (torch.abs(apred - aphys) < 0.5 * aphys)
+    # the step the predicted acceleration would give (get_timestep with
+    # flag -1: the whole criterion with its clamps)
+    eps = soft_table[p.ptype.long()]
+    eta2 = 2 * cfg.err_tol_int_accuracy * cf.atime * eps
+    ac2 = torch.clamp(apred, min=1e-30) * cfg.ngravs_timestep_scale
+    dt2 = torch.sqrt(eta2 / ac2) * cf.hubble_a
+    hi = _f32(min(cfg.max_size_timestep, float(dt_displacement)), dev)
+    dt2 = torch.minimum(torch.clamp(dt2, min=cfg.min_size_timestep), hi)
+    tbi = _f32(timebase_interval(cfg), dev)
+    ti2 = pow2_floor_i32(torch.clamp((dt2 / tbi).to(torch.int32), 1,
+                                     TIMEBASE))
+    # the acceleration equivalent of dt = ti_step and 2 ti_step
+    # (get_timestep's flag > 0 branch, timestep.c:475-487)
+    dt_cur = ti_step.to(aphys.dtype) * tbi / cf.hubble_a
+    scale = cfg.ngravs_timestep_scale
+    ac_eq_s = eta2 / torch.clamp(dt_cur * dt_cur * scale, min=1e-37)
+    ac_eq_g = eta2 / torch.clamp(4 * dt_cur * dt_cur * scale, min=1e-37)
+    denom = aphys - p.aphys_old
+    safe_den = torch.where(denom == 0, 1e-30, denom)
+    base_fac = old_step.to(aphys.dtype) \
+        / torch.clamp(ti_step, min=1).to(aphys.dtype) / safe_den
+    prob_s = (ac_eq_s - aphys) * base_fac
+    prob_g = (ac_eq_g - aphys) * base_fac
+    nr = rnd_table.shape[0]
+    pid = p.pid.long()
+    rnd_a = rnd_table[pid % nr]
+    rnd_b = rnd_table[(pid + 1) % nr]
+    shrink = eligible & (ti2 < ti_step) & (prob_s < rnd_a)
+    grow = eligible & (ti2 > ti_step) & (prob_g < rnd_b)
+    ti_step = torch.where(shrink, ti_step // 2,
+                          torch.where(grow, ti_step * 2, ti_step))
+    aphys_old = torch.where(active & (p.ptype != 0), aphys, p.aphys_old)
+    return torch.clamp(ti_step, min=1), aphys_old
+
+
 def kick(cfg, p, tables, ti_current: int, dt_displacement: float,
          soft_table: torch.Tensor, cf: CosmoFactors | None = None,
-         sph=None, min_egy_spec: float = 0.0):
-    """advance_and_find_timesteps (timestep.c:24-408) for the active set,
-    SYNCHRONIZATION mode.  Returns (particles', sph').  `p.accel` already
-    includes G; the long-range PM kick is the runner's
-    (timestep.c:350-408).  `min_egy_spec` is the MinGasTemp floor on u
-    (units.min_egy_spec)."""
+         sph=None, min_egy_spec: float = 0.0, flex=None, rnd_table=None):
+    """advance_and_find_timesteps (timestep.c:24-408) for the active set.
+    Returns (particles', sph').  `p.accel` already includes G; the
+    long-range PM kick is the runner's (timestep.c:350-408).
+    `min_egy_spec` is the MinGasTemp floor on u (units.min_egy_spec).
+
+    SYNCHRONIZATION mode unless `flex` = (flex_grp, present_min_step,
+    present_max_step) asks for FLEXSTEPS' phase grid; under
+    PSEUDOSYMMETRIC `rnd_table` is the step's table of uniform draws."""
     active = p.ti_endstep == ti_current
     ti_step = compute_timestep_ticks(cfg, p, dt_displacement, soft_table, cf,
                                      sph)
 
-    # SYNCHRONIZATION rule (timestep.c:240-246): a step may only grow if
-    # the new end lands on an aligned tick
-    old_step = p.ti_endstep - p.ti_begstep
-    wants_increase = ti_step > old_step
-    misaligned = ((TIMEBASE - p.ti_endstep) % ti_step) > 0
-    ti_step = torch.where(wants_increase & misaligned & (old_step > 0),
-                          old_step, ti_step)
+    if flex is not None:
+        ti_step = _flex_align(ti_step, p.ti_endstep, flex)
+    else:
+        if cfg.pseudosymmetric and rnd_table is not None:
+            ti_step, aphys_old = _pseudosymmetric(
+                cfg, p, active, ti_step, dt_displacement, soft_table,
+                cf or cosmo_factors(cfg, None, 1.0, p.device), rnd_table)
+            p = p.replace(aphys_old=aphys_old)
+        # SYNCHRONIZATION rule (timestep.c:240-246): a step may only grow
+        # if the new end lands on an aligned tick
+        old_step = p.ti_endstep - p.ti_begstep
+        wants_increase = ti_step > old_step
+        misaligned = ((TIMEBASE - p.ti_endstep) % ti_step) > 0
+        ti_step = torch.where(wants_increase & misaligned & (old_step > 0),
+                              old_step, ti_step)
 
     # end-of-run clamps (timestep.c:249-253)
     if ti_current == TIMEBASE:

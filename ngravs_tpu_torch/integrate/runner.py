@@ -9,20 +9,28 @@ reference run.c:20-141, begrun.c, init.c).
         energy statistics if due              # global.c
         kick active set, assign new steps     # timestep.c
 
-Runs stepped one sync point at a time (the general `step()` of the JAX
-package; it has no device-resident segments): open boxes with the tree or
-the direct sweep, periodic boxes with the Ewald-corrected tree or direct
-sweep, and periodic TreePM boxes (PMGRID), Newtonian or comoving,
-collisionless or with SPH gas, with FORCETEST rows on request.  Under
-PMGRID a PM step forces a full sync (run.c:175-181), the long-range force
-is computed first (accel.c:34-42), and after the short-range kick every
-particle gets the long-range kick over the PM midpoint window
-(timestep.c:350-408).  Gas
-runs the density and hydro passes (`ops/sph.py`) after gravity on the
-gravity walk's tree (accel.c:60-89).  Restart files (`io/restart.py`) are
-written on the stop file, at 85% of TimeLimitCPU, every
-CpuTimeBetRestartFile seconds and on a crash.  Features of later slices
-raise NotImplementedError naming their ROADMAP item.
+`step()` advances one sync point with the general step: open boxes with
+the tree or the direct sweep, periodic boxes with the Ewald-corrected tree
+or direct sweep, and periodic TreePM boxes (PMGRID), Newtonian or
+comoving, collisionless or with SPH gas, with FORCETEST rows on request.
+Under PMGRID a PM step forces a full sync (run.c:175-181), the long-range
+force is computed first (accel.c:34-42), and after the short-range kick
+every particle gets the long-range kick over the PM midpoint window
+(timestep.c:350-408).  Gas runs the density and hydro passes
+(`ops/sph.py`) after gravity on the gravity walk's tree (accel.c:60-89).
+The integrator's variants run too: FLEXSTEPS, PSEUDOSYMMETRIC, MAKEGLASS
+(displace instead of kicking) and TWODIMS / LONG_X/Y/Z (SPH without
+gravity).  Restart files (`io/restart.py`) are written on the stop file,
+at 85% of TimeLimitCPU, every CpuTimeBetRestartFile seconds and on a
+crash.
+
+With `segment_steps=K > 1` one `step()` call advances up to K sync points
+of a collisionless run without the special modes, stopping before the next
+snapshot or statistics time: on the direct path (headless runs) as a loop
+of the general step, and on the tree/TreePM path as the JAX package's tree
+segment, with the reference's tree maintenance cadence.  A segment is a
+host loop over tensors on the device that reads a few scalars a step
+(`seg_counts` counts them).
 """
 
 from __future__ import annotations
@@ -44,29 +52,20 @@ from ..io.gadget_format import (SnapshotData, SnapshotHeader, read_snapshot,
 from ..models.wiring import build_wiring
 from ..ops.solver import GravitySolver
 from ..ops.sph import HydroSolver
-from ..ops.tree import build_tree
+from ..ops.tree import build_tree, drift_tree, refresh_tree
+from ..ops.walk import drift_walk_tables, pack_walk_tables
 from ..particles import Particles, SphState
 from ..units import set_units
-from .kdk import box_wrap, compute_timestep_dt, cosmo_factors, drift, kick, \
-    pm_kick, pm_kick_vel_pred, predict_sph
-from .timeline import pm_window, ti_to_time, time_to_ti, timebase_interval
+from .kdk import box_wrap, compute_timestep_dt, compute_timestep_ticks, \
+    cosmo_factors, drift, glass_step, kick, pm_kick, pm_kick_vel_pred, \
+    predict_sph
+from .timeline import (pm_window, pm_window_update, pow2_floor, ti_to_time,
+                       time_to_ti, timebase_interval)
 
-
-def _check_supported(cfg: SimulationConfig, segment_steps: int):
-    """Refuse what this slice does not run, naming the ROADMAP item."""
-    todo = [
-        (segment_steps != 1, "segment_steps > 1 (device-resident segments)",
-         "Queue 1 item 10a"),
-        (cfg.flexsteps or cfg.pseudosymmetric or cfg.make_glass,
-         "FLEXSTEPS / PSEUDOSYMMETRIC / MAKEGLASS", "Queue 1 item 17"),
-        (cfg.twodims or (cfg.long_x, cfg.long_y, cfg.long_z) != (1, 1, 1),
-         "TWODIMS / LONG_X/Y/Z", "Queue 1 item 17"),
-    ]
-    for bad, what, item in todo:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not yet ported to ngravs_tpu_torch "
-                f"(ROADMAP {item})")
+# tree segments re-aggregate the moments every REFRESH_EVERY steps and
+# drift them in between (ngravs_tpu/integrate/runner.py:639)
+REFRESH_EVERY = 8
+TREE_MODES = ("drift", "refresh", "rebuild")
 
 
 def build_snapshot_data(cfg, tables, tbi: float, p: Particles,
@@ -210,13 +209,13 @@ class Simulation:
     (`device="cpu"`).  `sph`: the gas state when `particles` are given (its
     entropy field holds u until the first force pass).  `log_dir=""` runs
     headless (no log files); None uses cfg.output_dir, or a scratch
-    directory."""
+    directory.  `segment_steps=K > 1` lets one `step()` call advance up to
+    K sync points (the JAX package's device-resident segments)."""
 
     def __init__(self, cfg: SimulationConfig, particles: Particles | None = None,
                  sph: SphState | None = None, ic_path: str | None = None,
                  log_dir: str | None = None, segment_steps: int = 1,
                  device=None):
-        _check_supported(cfg, segment_steps)
         if device is None:
             device = particles.device if particles is not None else "cuda"
         self.device = torch.device(device)
@@ -226,6 +225,7 @@ class Simulation:
                 'caller asks for the CPU (Simulation(..., device="cpu"), '
                 "python -m ngravs_tpu_torch.run ... --device cpu)")
         self.cfg = cfg
+        self._segment_cap = max(1, int(segment_steps))
         self.units = set_units(cfg)
         self.wiring = build_wiring(cfg)
         self.tables = make_tables(cfg, self.units)
@@ -291,6 +291,26 @@ class Simulation:
                                     device=self.device)
         self.hydro = HydroSolver(cfg, self.units) \
             if self.sph is not None else None
+        # the segments' counts: segments run, steps, host reads of their
+        # loop, cap retries, and the tree segments' steps by maintenance
+        # mode (drift, refresh, rebuild)
+        self.seg_counts = dict(segments=0, steps=0, host_reads=0,
+                               retries=0, **{m: 0 for m in TREE_MODES})
+        if cfg.pseudosymmetric:
+            # a fresh 3000-entry table of draws a step, seed 42
+            # (set_random_numbers, system.c:37; begrun.c:54-55)
+            self._rnd_rng = np.random.default_rng(42)
+        if cfg.flexsteps:
+            # FLEXSTEPS state (init.c:123-129): an ID-keyed random phase a
+            # particle from a 3000-entry table (get_random_number,
+            # system.c:29-47)
+            rnd = np.random.default_rng(42).random(3000)
+            pid = self.p.pid.cpu().numpy()
+            self.flex_grp = torch.as_tensor(
+                (C.TIMEBASE * rnd[pid % 3000]).astype(np.int64)
+                .astype(np.int32), device=self.device)
+            self.present_min_step = C.TIMEBASE
+            self.present_max_step = C.TIMEBASE
 
         if cfg.adaptive_gravsoft_forgas and self.n_gas > 0:
             # the gas gravitational softening is Hsml, so converge the
@@ -303,17 +323,26 @@ class Simulation:
     def _initial_hsml(self):
         """setup_smoothinglengths (init.c:218): the first Hsml guess from
         the mean gas interparticle separation (the box volume when
-        periodic, else the gas extent)."""
+        periodic, else the gas extent; an area under TWODIMS,
+        init.c:245-251)."""
         cfg = self.cfg
         gas = self.p.ptype == 0
         gpos = self.p.pos.cpu().numpy()[gas.cpu().numpy()]
         ext = gpos.max(0) - gpos.min(0)
-        vol = float(np.prod(ext) + 1e-30)
-        if cfg.periodic and cfg.box_size > 0:
-            bx, by, bz = cfg.box_sizes
-            vol = bx * by * bz
-        h0 = (3 * vol * cfg.des_num_ngb
-              / (4 * math.pi * max(self.n_gas, 1))) ** (1.0 / 3)
+        periodic = cfg.periodic and cfg.box_size > 0
+        if cfg.twodims:
+            area = float(ext[0] * ext[1] + 1e-30)
+            if periodic:
+                area = cfg.box_sizes[0] * cfg.box_sizes[1]
+            h0 = (area * cfg.des_num_ngb
+                  / (math.pi * max(self.n_gas, 1))) ** 0.5
+        else:
+            vol = float(np.prod(ext) + 1e-30)
+            if periodic:
+                bx, by, bz = cfg.box_sizes
+                vol = bx * by * bz
+            h0 = (3 * vol * cfg.des_num_ngb
+                  / (4 * math.pi * max(self.n_gas, 1))) ** (1.0 / 3)
         self.sph = self.sph.replace(
             hsml=torch.where(gas, float(np.float32(h0)), 0.0))
 
@@ -358,18 +387,21 @@ class Simulation:
         self.p = box_wrap(self.cfg, drift(self.p, self.tables,
                                           self.ti_current, ti1))
 
-    def dt_displacement_constraint(self) -> float:
+    def dt_displacement_constraint(self, p=None, atime=None) -> float:
         """find_dt_displacement_constraint (timestep.c:587-651): the global
         RMS-displacement limit per type, from the minimum particle mass vs
         the component's mean cosmic density, mesh-aware under PMGRID; only
-        comoving runs have it.  f32 arithmetic, as the JAX package does."""
-        cfg, units, p = self.cfg, self.units, self.p
+        comoving runs have it.  f32 arithmetic, as the JAX package does.
+        `p` and `atime` (an f32 tensor) default to the run's particles and
+        time."""
+        cfg, units = self.cfg, self.units
+        p = self.p if p is None else p
         f32 = lambda v: torch.tensor(v, dtype=torch.float32,
                                      device=self.device)
         dt_min = f32(cfg.max_size_timestep)
         if not cfg.comoving_integration:
             return float(dt_min)
-        a = f32(self.time)
+        a = f32(self.time) if atime is None else atime
         h2 = (cfg.omega0 / (a * a * a)
               + (1 - cfg.omega0 - cfg.omega_lambda) / (a * a)
               + cfg.omega_lambda)
@@ -592,8 +624,296 @@ class Simulation:
             self._logs["energy"].flush()
         return s
 
+    def _flex_steps(self, cf):
+        """FLEXSTEPS' present steps before a kick (timestep.c:140-175): the
+        smallest doubles on its schedule and falls to the active set's
+        smallest wanted step; the largest is the displacement constraint's
+        power-of-two floor.  Returns the kick's `flex` triple."""
+        cfg = self.cfg
+        if self.ti_current % (4 * self.present_min_step) == 0 \
+                and self.present_min_step < C.TIMEBASE:
+            self.present_min_step *= 2
+        ticks = compute_timestep_ticks(cfg, self.p, self.dt_displacement,
+                                       self._soft_t, cf, self.sph)
+        act = self.p.ti_endstep == self.ti_current
+        mn = int(torch.amin(torch.where(act, ticks, C.TIMEBASE)))
+        self.present_min_step = min(self.present_min_step, mn)
+        mx = max(1, min(int(min(self.dt_displacement, cfg.max_size_timestep)
+                            / self.tbi), C.TIMEBASE))
+        self.present_max_step = pow2_floor(mx)
+        return (self.flex_grp, self.present_min_step, self.present_max_step)
+
+    # ------------------------------------------------------------------
+    # Segments (ngravs_tpu/integrate/runner.py:562-823, 1031-1222)
+    # ------------------------------------------------------------------
+    def _next_sync_info(self):
+        """(next sync point, particles active there) in one fetch."""
+        mn = torch.amin(self.p.ti_endstep)
+        pair = torch.stack([mn, torch.sum(self.p.ti_endstep == mn)
+                            .to(mn.dtype)]).cpu()
+        return int(pair[0]), int(pair[1])
+
+    def _segment_bounds(self) -> int:
+        """The largest tick strictly before the next snapshot or
+        statistics time (TIMEBASE when there is none)."""
+        cfg = self.cfg
+        t_bound = self._next_output
+        if cfg.time_bet_statistics > 0:
+            t_bound = min(t_bound, self._next_stats)
+        if t_bound == float("inf"):
+            return C.TIMEBASE
+        ti_stop = min(time_to_ti(cfg, t_bound), C.TIMEBASE)
+        while ti_stop > 0 and t_bound <= self.time_at(ti_stop) + 1e-12:
+            ti_stop -= 1
+        return ti_stop
+
+    def _segment_kind(self) -> str | None:
+        """"tree", "direct" or None: the segment this run takes
+        (_try_fast_step, ngravs_tpu/integrate/runner.py:1140-1165).  The
+        special modes, gas and the MinSizeTimestep stop take the general
+        step; so do the direct path's logged, PMGRID and comoving runs."""
+        cfg = self.cfg
+        if (self._segment_cap <= 1 or cfg.make_glass or cfg.force_test > 0
+                or cfg.no_gravity or cfg.selective_no_gravity
+                or cfg.pseudosymmetric or cfg.flexsteps or self.n_gas > 0
+                or (cfg.min_size_timestep > 0
+                    and not cfg.nostop_when_below_mintimestep)):
+            return None
+        if not self.solver.uses_direct(self.p.n):
+            return "tree" if (self._forces_bootstrapped and
+                              self.ti_current < C.TIMEBASE) else None
+        if cfg.pmgrid or cfg.comoving_integration or self._logs:
+            return None
+        return "direct"
+
+    def _direct_segment(self):
+        """Up to K general steps in one call (the direct path's segment,
+        fused_multistep_fn, ngravs_tpu/integrate/runner.py:562-589): after
+        the first, while the next sync point moves forward and stays at or
+        before the next snapshot or statistics time.  Bit for bit the
+        single steps."""
+        steps = 0
+        while True:
+            self._general_step()
+            steps += 1
+            if steps >= self._segment_cap or self.ti_current >= C.TIMEBASE:
+                break
+            _, min_glob = self._active_info()
+            self.seg_counts["host_reads"] += 1
+            if min_glob > self._segment_bounds() \
+                    or min_glob <= self.ti_current:
+                break
+        self.seg_counts["segments"] += 1
+        self.seg_counts["steps"] += steps
+
+    def _try_tree_segment(self) -> bool:
+        """A segment on the tree/TreePM solver (_try_tree_segment,
+        ngravs_tpu/integrate/runner.py:1046-1137).  A walk that overflows
+        its caps freezes the state before that step; the caps grow to the
+        measured demand and the segment resumes, at most 6 times.  An
+        overflow the caps cannot cure (the octet layout) drops the octet
+        caps and leaves the step to the general path, which re-measures
+        them.  True if the state advanced."""
+        min_glob, n_act = self._next_sync_info()
+        ti_stop = self._segment_bounds()
+        if min_glob > ti_stop:
+            return False
+        solver = self.solver
+        solver.clamp_caps(self.p.n)
+        for _ in range(6):
+            t_seg0 = _time.time()
+            steps, ovf, demand, rec, (min_glob, n_act) = self._tree_segment(
+                min_glob, n_act, ti_stop)
+            self._log_segment(rec, _time.time() - t_seg0)
+            if not ovf:
+                return steps > 0
+            self.seg_counts["retries"] += 1
+            caps_before = (dict(solver.fcaps), solver.octet_caps)
+            solver.grow_caps(*demand)
+            if (dict(solver.fcaps), solver.octet_caps) == caps_before:
+                solver.octet_caps = None
+                return steps > 0
+        raise RuntimeError(f"tree segment caps still overflowing at "
+                           f"{solver.fcaps}")
+
+    def _tree_maintain(self, p, mode: int, tree, wt, dd):
+        """The tree and packed walk tables for a segment step, on the
+        reference's cadence (ngravs_tpu/integrate/runner.py:641-673): 0
+        drifts them (predict.c:83-90), 1 re-aggregates the moments and
+        repacks on the cached layout, 2 rebuilds."""
+        cfg, solver = self.cfg, self.solver
+        if mode == 0:
+            return drift_tree(tree, dd), drift_walk_tables(wt, dd,
+                                                           cfg.n_gravs)
+        fsoft = solver.fsoft_by_type.to(self.device)[p.ptype.long()]
+        aold = cfg.err_tol_force_acc * p.old_acc / solver.G
+        zero_h = torch.zeros_like(p.mass)
+        kw = dict(depth=solver.depth, n_gravs=cfg.n_gravs,
+                  bucket=cfg.tree_bucket_size)
+        layout = None
+        if mode == 1:
+            tree = refresh_tree(tree, p.pos, p.mass, p.grav, fsoft, aold,
+                                zero_h, vel=p.vel, **kw)
+            layout = (wt.slot8, wt.child_oct, wt.layout_ovf)
+        else:
+            tree = build_tree(p.pos, p.mass, p.grav, fsoft, aold, zero_h,
+                              box_size=cfg.tree_box_size,
+                              group_size=cfg.walk_group_size, vel=p.vel,
+                              **kw)
+        return tree, pack_walk_tables(
+            tree, p.n, solver.depth, cfg.tree_bucket_size, cfg.n_gravs,
+            solver.leaf_factor, accumulator=self.wiring.accumulator,
+            layout=layout, octet_caps=solver.octet_caps)
+
+    def _time_f32(self, ti: int) -> torch.Tensor:
+        """The time at tick ti in f32 arithmetic, as the JAX segment
+        computes it on the device (time_at_dev)."""
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32,
+                                     device=self.device)
+        tf = f32(ti) * f32(float(self.tbi))
+        if self.cfg.comoving_integration:
+            return f32(self.cfg.time_begin) * torch.exp(tf)
+        return f32(self.cfg.time_begin) + tf
+
+    def _tree_segment(self, min_glob: int, n_act: int, ti_stop: int):
+        """Run one tree segment from the committed state and commit what
+        completed (tree_multi_fn, ngravs_tpu/integrate/runner.py:739-818).
+        A step: drift; PM when due; the tree by its cadence; the walk over
+        the active targets; the corrections; the comoving displacement
+        refresh on full steps; the kick; the PM kick and window.  The loop
+        reads one stacked row of scalars a step (next sync point, its
+        active count, the overflow flag, the interaction count).  Returns
+        (steps, overflowed, cap demand, per-step records, (next sync
+        point, active count there))."""
+        cfg, solver, tables = self.cfg, self.solver, self.tables
+        n = self.p.n
+        walk = solver._walk(want_pot=False)
+        opening = "relative" if cfg.type_of_opening_criterion == 1 else "bh"
+        rebuild_every = max(1, int(cfg.tree_domain_update_frequency * n))
+        comoving_dt = cfg.comoving_integration \
+            and not cfg.no_pmstep_adjustment
+        p = self.p
+        tree, wt = self._tree_maintain(p, 2, None, None, None)
+        since = since_agg = 0
+        ti_cur, min_nxt, n_nxt = self.ti_current, min_glob, n_act
+        pm_b, pm_e = self.pm_ti_begstep, self.pm_ti_endstep
+        dt_disp = self.dt_displacement
+        steps = updates = last_act = 0
+        ovf = False
+        chunk_dem = 0
+        lvl_dem = None
+        rec = []
+        while (steps < self._segment_cap and min_nxt <= ti_stop
+               and (steps == 0 or min_nxt > ti_cur)
+               and (not cfg.pmgrid or min_nxt <= pm_e)):
+            ti0, ti1 = ti_cur, min_nxt
+            dd = tables.drift_factor(ti0, ti1).to(self.device)
+            q = box_wrap(cfg, drift(p, tables, ti0, ti1))
+            pm_step = bool(cfg.pmgrid) and ti1 == pm_e
+            if pm_step:
+                q = q.replace(accel_pm=solver.pm.forces(q.pos, q.mass,
+                                                        q.grav))
+            n_active = n_nxt
+            mode = 2 if since >= rebuild_every else \
+                1 if since_agg >= REFRESH_EVERY else 0
+            tree1, wt1 = self._tree_maintain(q, mode, tree, wt, dd)
+            since1 = (0 if mode == 2 else since) + n_active
+            since_agg1 = 0 if mode > 0 else since_agg + 1
+            mask = q.ti_endstep == ti1
+            tgt = torch.nonzero(mask[tree1.order.long()]).squeeze(1)
+            res = walk(tree1, tgt, opening_override=opening, tables=wt1)
+            orig = tree1.order[tgt].long()
+            q = solver._scatter(q, orig, res.acc, res.pot, want_pot=False,
+                                ninteract=res.ninteract)
+            time_now = self._time_f32(ti1)
+            dt1 = dt_disp
+            if comoving_dt and n_active == n:
+                dt1 = self.dt_displacement_constraint(q, time_now)
+            cf = cosmo_factors(cfg, self.units, time_now, self.device) \
+                if cfg.comoving_integration else None
+            q, _ = kick(cfg, q, tables, ti1, dt1, self._soft_t, cf)
+            pm_b1, pm_e1 = pm_b, pm_e
+            if pm_step:
+                tstart, tend, pm_b1, pm_e1 = pm_window_update(
+                    ti1, pm_b, pm_e, dt1, float(self.tbi))
+                q = pm_kick(q, tables, tstart, tend)
+            mn = torch.amin(q.ti_endstep).long()
+            head = torch.cat([torch.stack([
+                mn, torch.sum(q.ti_endstep == mn), res.overflow.long(),
+                torch.sum(res.ninteract.long()), res.max_chunk.long()]),
+                res.max_frontier.long()]).cpu()
+            self.seg_counts["host_reads"] += 1
+            min2, n2, ovf1, nia, mc = (int(x) for x in head[:5])
+            chunk_dem = max(chunk_dem, mc)
+            lvl_dem = head[5:] if lvl_dem is None \
+                else torch.maximum(lvl_dem, head[5:])
+            if ovf1:
+                # freeze before the offending step
+                ovf = True
+                break
+            p, tree, wt = q, tree1, wt1
+            since, since_agg, dt_disp = since1, since_agg1, dt1
+            pm_b, pm_e = pm_b1, pm_e1
+            rec.append((ti1, n_active, nia))
+            self.seg_counts[TREE_MODES[mode]] += 1
+            ti_cur, min_nxt, n_nxt = ti1, min2, n2
+            updates += n_active
+            last_act = n_active
+            steps += 1
+        # commit what completed
+        self.p = p
+        self.ti_current = ti_cur
+        self.dt_displacement = dt_disp
+        self.pm_ti_begstep, self.pm_ti_endstep = pm_b, pm_e
+        self.num_force_updates += updates
+        self.step_count += steps
+        if steps:
+            self.flag_fullstep = last_act == n
+        self.seg_counts["segments"] += 1
+        self.seg_counts["steps"] += steps
+        # the segment's trees are not the solver's cache
+        solver._tree_cache = None
+        demand = (chunk_dem, lvl_dem.numpy() if lvl_dem is not None
+                  else np.zeros(solver.depth + 1, np.int64))
+        return steps, ovf, demand, rec, (min_nxt, n_nxt)
+
+    def _log_segment(self, rec, seconds: float):
+        """A segment's info and timings lines from its per-step records
+        (every_timestep_stuff, run.c:370-392; gravtree.c:408-445), the
+        wall time shared evenly."""
+        if not rec or not self._logs:
+            return
+        step0 = self.step_count - len(rec)
+        per = seconds / len(rec)
+        for k, (ti_k, act_k, nia_k) in enumerate(rec):
+            if "info" in self._logs:
+                self._logs["info"].write(
+                    f"Begin Step {step0 + k}, Time: "
+                    f"{self.time_at(ti_k):.8g}, Active: {act_k} "
+                    "(segment)\n")
+            if "timings" in self._logs:
+                self._logs["timings"].write(
+                    f"Step {step0 + k + 1}: forces for {act_k} particles "
+                    f"in {per:.4f}s  part/sec={act_k / max(per, 1e-9):.5g}"
+                    f"  ia/part={nia_k / max(act_k, 1):.1f}\n")
+        for key in ("info", "timings"):
+            if key in self._logs:
+                self._logs[key].flush()
+
     # ------------------------------------------------------------------
     def step(self):
+        """One main-loop iteration (run.c:32-132), or a segment of up to
+        `segment_steps` of them where the run allows one
+        (`_segment_kind`)."""
+        kind = self._segment_kind()
+        if kind == "tree" and self._try_tree_segment():
+            return
+        if kind == "direct":
+            self._direct_segment()
+            return
+        self._general_step()
+
+    def _general_step(self):
         """One main-loop iteration (run.c:32-132)."""
         cfg = self.cfg
         t_step0 = _time.time()
@@ -649,6 +969,20 @@ class Simulation:
             self.energy_statistics()
             self._next_stats += cfg.time_bet_statistics
 
+        # --- MAKEGLASS (timestep.c:85-133): displace instead of kicking;
+        # the active set's steps advance by MaxSizeTimestep ---
+        if cfg.make_glass:
+            self.p = glass_step(cfg, self.units, self.p)
+            act = self.p.ti_endstep == self.ti_current
+            inc = max(1, int(cfg.max_size_timestep / self.tbi))
+            self.p = self.p.replace(
+                ti_begstep=torch.where(act, self.p.ti_endstep,
+                                       self.p.ti_begstep),
+                ti_endstep=torch.where(act, self.p.ti_endstep + inc,
+                                       self.p.ti_endstep))
+            self.step_count += 1
+            return
+
         # --- kick + new timesteps ---
         t0 = _time.time()
         # displacement constraint refresh on full steps (timestep.c:63-68);
@@ -670,9 +1004,16 @@ class Simulation:
                     f"timestep wants to be {mn:g}, below MinSizeTimestep="
                     f"{cfg.min_size_timestep:g} (timestep.c:531-556); set "
                     "NoStopBelowMinTimestep 1 to clamp instead")
+        variant = {}
+        if cfg.flexsteps:
+            variant["flex"] = self._flex_steps(cf)
+        elif cfg.pseudosymmetric:
+            variant["rnd_table"] = torch.as_tensor(
+                self._rnd_rng.random(3000), dtype=torch.float32,
+                device=self.device)
         self.p, self.sph = kick(cfg, self.p, self.tables, self.ti_current,
                                 self.dt_displacement, self._soft_t, cf,
-                                self.sph, self.units.min_egy_spec)
+                                self.sph, self.units.min_egy_spec, **variant)
         if pm_step:
             # the long-range kick over the PM midpoint window
             # (timestep.c:350-408); the step in ticks from the

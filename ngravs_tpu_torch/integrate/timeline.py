@@ -50,7 +50,8 @@ def pow2_floor_i32(x: torch.Tensor) -> torch.Tensor:
     return x - (x >> 1)
 
 
-def _pow2_floor(x: int) -> int:
+def pow2_floor(x: int) -> int:
+    """Largest power of two <= x for a positive host integer (0 for 0)."""
     return 1 << (x.bit_length() - 1) if x > 0 else 0
 
 
@@ -61,7 +62,7 @@ def pm_window(ti_next: int, pm_beg: int, pm_end: int, ti_step: int):
     (timestep.c:357-362), and the long-range kick covers the midpoint
     window [old midpoint, new midpoint].  Host integers.  Returns (tstart,
     tend, new_beg, new_end)."""
-    ti_step = _pow2_floor(max(1, min(ti_step, TIMEBASE - ti_next)))
+    ti_step = pow2_floor(max(1, min(ti_step, TIMEBASE - ti_next)))
     old = pm_end - pm_beg
     if ti_step > old > 0 and (TIMEBASE - pm_end) % ti_step > 0:
         ti_step = old

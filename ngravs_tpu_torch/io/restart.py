@@ -7,6 +7,10 @@ other's file.  The tree is not saved: a resumed run builds a new one.
 `.bak` rotation as restart.c:45-78.  A resume with a larger TimeMax rescales
 the integer timeline by power-of-two halvings (readjust_timebase,
 begrun.c:821-864): old ticks map to new ticks exactly by a right shift.
+Under FLEXSTEPS the present smallest and largest steps are saved too (the
+per-particle phases follow from the IDs).  As in the JAX package, the
+PSEUDOSYMMETRIC generator's state is not saved: a resumed run draws its
+tables from a fresh generator of seed 42.
 """
 
 from __future__ import annotations
@@ -55,6 +59,10 @@ def save_restart(sim, path: str | None = None) -> str:
     state["time_begin"] = np.float64(cfg.time_begin)
     state["timeline_time_max"] = np.float64(cfg.timeline_time_max
                                             or cfg.time_max)
+    if cfg.flexsteps:
+        # FLEXSTEPS globals (allvars.h:407-409)
+        state["present_min_step"] = np.int64(sim.present_min_step)
+        state["present_max_step"] = np.int64(sim.present_max_step)
     np.savez_compressed(path + ".tmp.npz", **state)
     os.replace(path + ".tmp.npz", path)
     return path
@@ -136,6 +144,9 @@ def load_restart(sim, path: str | None = None):
     sim.num_force_updates = int(z["num_force_updates"])
     sim._next_output = float(z["next_output"])
     sim._next_stats = float(z["next_stats"])
+    if sim.cfg.flexsteps and "present_min_step" in z.files:
+        sim.present_min_step = int(z["present_min_step"])
+        sim.present_max_step = int(z["present_max_step"])
     sim._forces_bootstrapped = True
     sim._entropy_is_u = False
     return sim

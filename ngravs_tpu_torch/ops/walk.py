@@ -297,6 +297,25 @@ def pack_walk_tables(tree: Octree, n: int, depth: int, bucket: int,
                       wtab8=wtab8, wvel8=wvel8, gsrc=gsrc, gvel=gvel)
 
 
+def drift_walk_tables(wt: WalkTables, dd, n_gravs: int) -> WalkTables:
+    """Drift the packed tables between re-aggregations
+    (ngravs_tpu/ops/walk.py:398-418), the packed analog of the reference's
+    dynamic tree update (predict.c:83-90): source rows move with their row
+    velocities, the walk table's per-gravity CMs with the node CM
+    velocities.  Cell centres, masses, softening and the grav/gid bit
+    patterns are not touched."""
+    gsrc = wt.gsrc.clone()
+    rows = gsrc.view(-1, 8, 8)
+    rows[:, :, 0:3] += wt.gvel.view(-1, 8, 3) * dd
+    wtab8 = wt.wtab8.clone()
+    n_oct = wtab8.shape[0]
+    w = wtab8.shape[1] // 8
+    cg = wtab8.view(n_oct, 8, w)[:, :, 8:8 + 4 * n_gravs] \
+        .view(n_oct, 8, n_gravs, 4)
+    cg[..., 0:3] += wt.wvel8.view(n_oct, 8, n_gravs, 3) * dd
+    return wt._replace(gsrc=gsrc, wtab8=wtab8)
+
+
 def normalize_frontier_caps(frontier_caps, depth: int):
     """Per-level frontier caps (SLOT units) as a tuple[depth+1];
     int -> clamped 8^l."""

@@ -1,8 +1,11 @@
 """The port on the card: every K1 instance against its twin, and the walk,
 the main path and the comoving TreePM box path on CUDA against the same
 code on the CPU; the periodic walk's lattice pass and the tabulated TreePM
-evaluation on the card against the CPU; and runs on the card that repeat
-bit for bit (two force passes, two three-step runs, a resume).
+evaluation on the card against the CPU; runs on the card that repeat bit
+for bit (two force passes, two three-step runs, a resume); and segments on
+the card: the direct path's bit for bit its single stepping, the tree
+path's within the CPU test's tolerance of it, and the table drift equal
+to the CPU's.
 
 Every test here needs an NVIDIA GPU and skips without one.  This file
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -18,6 +21,7 @@ import pytest
 import torch
 
 from ngravs_tpu_torch.config import SimulationConfig
+from ngravs_tpu_torch.constants import TIMEBASE
 from ngravs_tpu_torch.integrate.runner import Simulation
 from ngravs_tpu_torch.models import laws as L
 from ngravs_tpu_torch.models.laws import Newtonian
@@ -225,6 +229,8 @@ def test_main_path_on_cuda_matches_cpu(cuda):
 BOX = 60.0
 K1_CASES = {
     # name: (wiring, n_gravs, periodic, treepm, accumulator)
+    "newton_periodic": ("newton", 1, True, False, False),           # K1c
+    "newton_periodic_treepm": ("newton", 1, True, True, False),     # K1cd
     "newton_yukawa": ("newton_yukawa", 2, False, False, False),
     "newton_yukawa_periodic_treepm": ("newton_yukawa", 2, True, True, False),
     "three_species_periodic_treepm": ("three_species", 3, True, True, False),
@@ -271,7 +277,8 @@ def _k1_terms(wiring, targets, sp, n_src, box, asmth, use_count):
 def test_k1_instances_match_twin(cuda, case, want_pot):
     wname, ng, periodic, treepm, acc = K1_CASES[case]
     box = BOX if periodic else 0.0
-    cfg = SimulationConfig(n_gravs=ng, type_to_grav=(0, 0, 1, 0, 0, 0),
+    cfg = SimulationConfig(n_gravs=ng,
+                           type_to_grav=(0, 0, min(1, ng - 1), 0, 0, 0),
                            wiring=wname, box_size=BOX, periodic=periodic,
                            pmgrid=32 if treepm else 0, ngravs_accumulator=acc)
     w = build_wiring(cfg)
@@ -382,7 +389,8 @@ def _edge_case(case, s, group, seed=7):
     S), a block of padding targets and one of padding sources."""
     wname, ng, periodic, treepm, acc = EDGE_CASES[case]
     w = None if wname is None else build_wiring(SimulationConfig(
-        n_gravs=ng, type_to_grav=(0, 0, 1, 0, 0, 0), wiring=wname,
+        n_gravs=ng, type_to_grav=(0, 0, min(1, ng - 1), 0, 0, 0),
+        wiring=wname,
         box_size=BOX, periodic=periodic, pmgrid=32 if treepm else 0,
         ngravs_accumulator=acc))
     kw = dict(wiring=w, box_size=BOX if periodic else 0.0,
@@ -709,3 +717,76 @@ def test_box_runs_on_cuda_are_bit_identical(cuda, tmp_path):
     assert s1.ti_current == s3.ti_current
     for f in ("pos", "vel", "accel", "accel_pm"):
         assert _same(getattr(s1.p, f), getattr(s3.p, f)), f
+
+
+def _uniform_system(n, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0, 4, (n, 3)).astype(np.float32),
+            rng.normal(0, 0.05, (n, 3)).astype(np.float32),
+            np.full(n, 1e-3, np.float32))
+
+
+SEG_CFG = dict(time_begin=0.0, time_max=1.0, gravity_constant_internal=1.0,
+               softening=(0.05,) * 6, max_size_timestep=0.01,
+               time_bet_snapshot=0.0, time_of_first_snapshot=1e30,
+               time_bet_statistics=0.0, wiring="newton")
+
+
+def _seg_sims(cuda, kw, n, seed, caps=(1, 16)):
+    cfg = SimulationConfig(**kw)
+    pos, vel, mass = _uniform_system(n, seed)
+    return [Simulation(cfg, particles=Particles.create(
+        pos, vel, mass, np.arange(n), np.ones(n, np.int32),
+        cfg.type_to_grav, device=cuda), log_dir="", segment_steps=c)
+        for c in caps]
+
+
+def test_direct_segment_on_cuda_is_bit_identical(cuda):
+    """tests/test_torch_segments.py::test_direct_segment_is_bit_identical
+    on the card."""
+    a, b = _seg_sims(cuda, dict(SEG_CFG, solver="direct"), 2048, 0)
+    for _ in range(32):
+        a.step()
+    calls = 0
+    while b.step_count < a.step_count:
+        b.step()
+        calls += 1
+    assert b.step_count == a.step_count and b.ti_current == a.ti_current
+    assert calls < a.step_count / 2
+    for k in ("pos", "vel", "accel", "ti_endstep"):
+        assert torch.equal(getattr(a.p, k), getattr(b.p, k)), k
+
+
+def test_tree_segment_on_cuda_matches_single_stepping(cuda):
+    """tests/test_torch_segments.py::test_tree_segment_matches_single_
+    stepping on the card: the timeline exact, positions and velocities
+    within 2e-3."""
+    kw = dict(SEG_CFG, solver="tree", tree_depth=6, err_tol_theta=0.6,
+              type_of_opening_criterion=0, time_max=0.05)
+    a, b = _seg_sims(cuda, kw, 256, 1)
+    for sim in (a, b):
+        while sim.ti_current < TIMEBASE and sim.time <= kw["time_max"]:
+            sim.step()
+    assert b.step_count == a.step_count and b.ti_current == a.ti_current
+    assert b.seg_counts["steps"] > 0
+    assert torch.equal(a.p.ti_endstep, b.p.ti_endstep)
+    assert float((a.p.pos - b.p.pos).abs().max()) <= 2e-3
+    assert float((a.p.vel - b.p.vel).abs().max()) <= 2e-3
+
+
+def test_drift_walk_tables_on_cuda_matches_cpu(cuda):
+    n = 6000
+    pos, mass, grav = _clumps(n)
+    vel = np.random.default_rng(8).normal(0, 0.1, (n, 3)).astype(np.float32)
+    args = [torch.as_tensor(a) for a in (pos, mass, grav)] \
+        + [torch.full((n,), 0.05), torch.full((n,), 1e-3)]
+    tree = ttree.build_tree(*args, depth=9, n_gravs=2, bucket=32,
+                            vel=torch.as_tensor(vel))
+    wt = twalk.pack_walk_tables(tree, n, 9, 32, 2, 2.0)
+    dd = torch.tensor(0.37)
+    cpu = twalk.drift_walk_tables(wt, dd, 2)
+    gpu = twalk.drift_walk_tables(
+        twalk.WalkTables(*(t.to(cuda) for t in wt)), dd.to(cuda), 2)
+    for name in ("gsrc", "wtab8"):
+        assert torch.equal(getattr(gpu, name).cpu().view(torch.int32),
+                           getattr(cpu, name).view(torch.int32)), name

@@ -10,8 +10,9 @@ two orders above the ~1e-6 relative force differences between the
 packages, so rounding cannot move a particle into another bin (the test
 checks this margin; seed 4 would come within 6e-6).  Then `run.main`
 drives a tiny IC from a parameterfile, the run's stop file writes a
-restart file that resumes, its not-yet-ported options raise naming their
-ROADMAP item, and the periodic pure-tree run (once refused) runs.  Every
+restart file that resumes, multi-device runs raise naming their ROADMAP
+item, segments advance, and the periodic pure-tree run (once refused)
+runs.  Every
 run here asks for the CPU by name: the port's entry points run on the
 CUDA card by default and raise without one.
 
@@ -177,9 +178,17 @@ def test_stop_file_and_unported_options(tmp_path):
     assert torch.equal(again.p.vel, sim.p.vel)
     with pytest.raises(NotImplementedError, match="item 18"):
         trun.main([str(param), "--devices", "4"])
-    with pytest.raises(NotImplementedError, match="item 10a"):
-        TSimulation(read_parameter_file(str(param)), segment_steps=4,
-                    device="cpu")
+    # segments (ROADMAP item 10a) run: two calls of a segment_steps=4 run
+    # advance the timeline and count their steps
+    seg = TSimulation(read_parameter_file(str(param)), segment_steps=4,
+                      device="cpu", log_dir="")
+    seg.step()                       # the first sync point, at tick 0
+    ticks = []
+    for _ in range(2):
+        seg.step()
+        ticks.append(seg.ti_current)
+    assert 0 < ticks[0] < ticks[1] and seg.step_count >= 3
+    assert seg.seg_counts["segments"] >= 1
     # the periodic pure-tree run (ROADMAP item 13) runs: the lattice tables
     # are built and the steps stay inside the box
     param2, _, _ = _tiny_run(tmp_path, "PeriodicBoundariesOn 1\nBoxSize 1\n")
