@@ -115,7 +115,30 @@ Phases (any failure raises and exits non-zero):
     positive somewhere; K1a launched, forces finite; (c) TWODIMS with
     LONG_X 2, NOGRAVITY: a periodic 256 x 128 gas sheet, 3 steps, the
     median density within 5% of the mean, 99.9% of the gas within
-    DesNumNgb +- MaxNumNgbDeviation, no K1.
+    DesNumNgb +- MaxNumNgbDeviation, no K1;
+11. multi-device runs over torch.distributed (`parallel.runner.
+    DistributedSimulation`), one process a rank spawned by
+    `parallel.mesh.launch`: 1 rank over NCCL on cuda:0, then 2 ranks over
+    gloo sharing the card, each with the replicated and the LET step on
+    slice 1's 60k open box (DIST_STEPS steps) and slice 2's 2 x 64^3
+    TreePM box (DIST_BOX_STEPS steps, FORCETEST on each PM step).  Gates:
+    every rank launches K1 (K1a, K1bcd); on rank 0 each instance's
+    largest launch of the run (by source rows) against the twin, as for
+    the other paths; the open box's last step's forces (every particle's)
+    within rms 5e-3 of the direct sweep and within rms 2e-2 of the
+    single-device solver's pass on the same state, momentum rate < 1e-3,
+    the sync points advancing, two 2-rank runs bit-identical; the box's
+    FORCETEST rms < 2.5e-2 on each PM step, its timeline and PM window
+    equal to phase 5's single-device run, the slab PM within 2e-5 of
+    max|a| of the single-device PM in float32 and within 1e-10 with both
+    in float64, the 2-rank multi-file snapshot read back equal to
+    `gather_ordered()` and a restart round trip bit for bit.  Printed
+    beside each: particle-steps/s (and the single device's), the K1
+    launches by rank, the host syncs of a step, the bytes each rank sends
+    in collectives in a step, the LET rows received.  The kernels line
+    has an entry of its own for each instance, IC and step of phase 11.
+    Then `python -m ngravs_tpu_torch.run <param> --devices 2 --backend
+    gloo` on a short open-box run must end with 0.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON object with every K1 instance's numbers; the last line is
@@ -196,6 +219,16 @@ GLASS_NSIDE, GLASS_CELLS, GLASS_STEPS = 64, 32, 5
 MODE_STEPS = 10
 SHEET_NX, SHEET_NY, SHEET_STEPS = 256, 128, 3
 SHEET_NGB, SHEET_NGB_DEV = 20, 2
+# phase 11: multi-device runs, 1 rank over NCCL and 2 over gloo on the one
+# card.  A pass on 2 ranks against the single-device pass: RMS_DIST, JAX's
+# LET-against-replicated bound (tests/test_parallel.py:643); the slab PM
+# against the single-device PM: PM_SHARDED_TOL of max|a|
+# (tests/test_parallel.py:183); both in float64: PM_F64_TOL (the float32
+# difference is the FFTs' rounding; tests/test_torch_parallel_pm.py reads
+# 1e-12 on the CPU)
+DIST_STEPS, DIST_BOX_STEPS = 10, 3
+RMS_DIST, PM_SHARDED_TOL, PM_F64_TOL = 2e-2, 2e-5, 1e-10
+DIST_DEVICE, DIST_LAUNCHES = "cuda", ((1, "nccl"), (2, "gloo"))
 # synthetic K1 instances: label -> (wiring, n_gravs, periodic, TreePM,
 # accumulator); the synthetic box is SYN_BOX wide, TreePM at PMGRID 32
 SYN_BOX = 100.0
@@ -222,6 +255,8 @@ OPS_TPM = {1: (23, 17), 3: (67, 22), 4: (104, 49)}
 
 
 T_START = time.perf_counter()
+# the single-device runs' numbers phase 11 compares with (phases 4 and 5)
+SINGLE = {}
 
 
 def stamp(what: str):
@@ -481,6 +516,22 @@ def record_launches(pairwise_eval, launched):
     return recording_eval
 
 
+def record_largest(pairwise_eval, largest):
+    """A pair evaluation that keeps in `largest`, per instance, a copy of
+    the inputs (targets, sp, n_src, want_pot, kw) of its launch with the
+    most source rows: sp's shape, known on the host, so recording reads
+    nothing back from the card."""
+    from ngravs_tpu_torch.ops.pairwise import instance_flags, instance_name
+
+    def recording_eval(targets, sp, n_src, want_pot, **kw):
+        name = instance_name(instance_flags(want_pot=want_pot, **kw))
+        if name not in largest or sp.numel() > largest[name][1].numel():
+            largest[name] = ({k: v.clone() for k, v in targets.items()},
+                             sp.clone(), n_src.clone(), want_pot, kw)
+        return pairwise_eval(targets, sp, n_src, want_pot, **kw)
+    return recording_eval
+
+
 def largest_launch(launched):
     """The recorded launch (targets, sp, n_src, want_pot, kw) with the most
     sources."""
@@ -490,9 +541,16 @@ def largest_launch(launched):
 def check_largest_launch(label: str, launched):
     """K1 against the twin on the inputs of the launch with the most
     sources (a path's own shapes and data), with its n_src spread."""
-    targets, sp, n_src, want_pot, kw = largest_launch(launched)
+    return check_launch_inputs(label, *largest_launch(launched),
+                               len(launched))
+
+
+def check_launch_inputs(label: str, targets, sp, n_src, want_pot, kw,
+                        of: int):
+    """K1 against the twin on one recorded launch's inputs, the largest
+    of `of`, with its n_src spread."""
     ns = n_src.double()
-    print(f"{label}: largest of {len(launched)} launches, {sp.shape[0]} "
+    print(f"{label}: largest of {of} launches, {sp.shape[0]} "
           f"blocks, n_src max {int(ns.max())} / mean {float(ns.mean()):.1f}"
           f" = spread {float(ns.max() / ns.mean()):.2f}", flush=True)
     return check_kernel(label, targets, sp, n_src, (want_pot,),
@@ -715,10 +773,12 @@ def plummer(rng, k: int, a: float, m: float, g_int: float):
     return pos, rng.normal(size=(k, 3)) * sigma[:, None]
 
 
-def write_galaxy_collision(run_dir: str, seed: int = 7) -> str:
+def write_galaxy_collision(run_dir: str, seed: int = 7,
+                           npart=NPART) -> str:
     """Two 30k Plummer galaxies (1e12 Msun, a = 10 kpc each) 100 kpc apart,
-    closing at 300 km/s with a 20 kpc impact parameter; returns the
-    parameterfile path."""
+    closing at 300 km/s with a 20 kpc impact parameter (`npart`: other
+    per-type counts, the same two galaxies); returns the parameterfile
+    path."""
     from ngravs_tpu_torch.config import SimulationConfig
     from ngravs_tpu_torch.io.gadget_format import (SnapshotData,
                                                    SnapshotHeader,
@@ -727,8 +787,8 @@ def write_galaxy_collision(run_dir: str, seed: int = 7) -> str:
     g_int = set_units(SimulationConfig()).G
     rng = np.random.default_rng(seed)
     m_gal, a = 100.0, 10.0
-    n = sum(NPART)
-    ptype = np.repeat(np.arange(6, dtype=np.int32), NPART)
+    n = sum(npart)
+    ptype = np.repeat(np.arange(6, dtype=np.int32), npart)
     gal = np.zeros(n, np.int64)
     for t in range(6):           # each type split evenly between galaxies
         idx = np.nonzero(ptype == t)[0]
@@ -742,7 +802,7 @@ def write_galaxy_collision(run_dir: str, seed: int = 7) -> str:
         pos[sel] = p + off
         vel[sel] = w + v
     h = SnapshotHeader()
-    h.npart = np.array(NPART, np.int32)
+    h.npart = np.array(npart, np.int32)
     h.npart_total = h.npart.astype(np.uint32)
     h.mass = np.array([0.0] + [m_gal * 2 / n] * 5)
     ic = os.path.join(run_dir, "GalaxyCollision.IC")
@@ -788,6 +848,7 @@ def galaxy_path(dev, card: str):
     if not bool(torch.isfinite(sim.p.accel).all()):
         raise AssertionError("non-finite forces on the main path")
     rate = sim.num_force_updates / wall
+    SINGLE["open"] = dict(rate=rate)
     print(f"main path [{card}]: {steps} steps to t={sim.time:.6g}, "
           f"{sim.num_force_updates} particle-steps in {wall:.2f} s = "
           f"{rate:.1f} particle-steps/s, K1 launches {counts}, tree "
@@ -939,6 +1000,9 @@ def box_path(dev, card: str):
           flush=True)
     # FORCETEST runs on the PM steps (gravtree_forcetest.c:46-49)
     check_forcetest("box path", ft_path, card, RMS_TREEPM, 1, steps)
+    SINGLE["box"] = dict(rate=sim.num_force_updates / wall,
+                         timeline=[sim.ti_current, sim.pm_ti_begstep,
+                                   sim.pm_ti_endstep])
     stamp("box path run")
 
     # one full TreePM pass at the final state: the short-range walk and PM
@@ -2187,6 +2251,365 @@ def sheet_path(dev, card: str):
 
 
 # --------------------------------------------------------------------------
+# phase 11: multi-device runs over torch.distributed
+# --------------------------------------------------------------------------
+
+def rewrite_param(path: str, out: str, **changes) -> str:
+    """A copy of a parameterfile with some tags changed."""
+    with open(path) as f:
+        params = dict(line.split(None, 1) for line in f if line.strip())
+    params = {k: v.strip() for k, v in params.items()}
+    params.update({k: str(v) for k, v in changes.items()})
+    return write_param(out, params)
+
+
+def dist_config(job: dict):
+    from ngravs_tpu_torch.config import read_parameter_file
+    if job["kind"] == "open":
+        return read_parameter_file(job["param"], direct_crossover=1000,
+                                   tree_depth=12)
+    return read_parameter_file(job["param"], pmgrid=BOX_PMGRID, n_gravs=2,
+                               wiring="newton_yukawa", pm_interlace=True,
+                               force_test=FORCETEST_FRAC)
+
+
+def dist_sim(mesh, job: dict, log_dir: str):
+    from ngravs_tpu_torch.integrate.runner import load_initial_conditions
+    from ngravs_tpu_torch.parallel.runner import DistributedSimulation
+    from ngravs_tpu_torch.units import set_units
+    cfg = dist_config(job)
+    p, _ = load_initial_conditions(cfg, set_units(cfg), device="cpu")
+    os.makedirs(log_dir, exist_ok=True)
+    return DistributedSimulation(cfg, p, mesh=mesh, log_dir=log_dir,
+                                 use_let=job["let"])
+
+
+def dist_drive(mesh, sim, steps: int, label: str):
+    """`steps` steps with the K1 counts and the collective statistics from
+    0, the last step under CUDA's sync debug mode; rank 0 keeps the inputs
+    of each K1 instance's largest launch and then holds K1 to its twin on
+    them (after the counts are read).  Returns the rank's numbers."""
+    from ngravs_tpu_torch.ops import pairwise
+    largest = {}
+    if mesh.rank == 0:
+        sim.solver.pair_eval = record_largest(pairwise.pairwise_eval,
+                                              largest)
+    pairwise.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    syncs = []
+    for k in range(steps):
+        if k == steps - 1:
+            mesh.reset_stats()
+            host_syncs = count_host_syncs(sim.step)
+            coll = dict(mesh.stats)
+        else:
+            sim.step()
+        syncs.append(sim.ti_current)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(pairwise.pairwise_eval.counts)
+    sim.solver.pair_eval = pairwise.pairwise_eval
+    k1 = {}
+    for name, launch in largest.items():
+        nums = check_launch_inputs(f"kernel ({label}, {name} largest "
+                                   "launch)", *launch, counts[name])
+        nums["rows"] = launch[1].numel()
+        k1[name] = nums
+    del largest
+    rows = sim.let_rows
+    p = sim.p
+    return dict(
+        counts=counts, k1=k1, wall=wall,
+        updates=sim.num_force_updates, syncs=syncs,
+        timeline=[sim.ti_current, sim.pm_ti_begstep, sim.pm_ti_endstep],
+        host_syncs=host_syncs, bytes=coll["bytes"], calls=coll["calls"],
+        let_rows=int(rows) if rows is not None else None,
+        cap_retries=sim.cap_retries,
+        finite=all(bool(torch.isfinite(getattr(p, k)).all())
+                   for k in ("pos", "vel", "accel", "accel_pm")))
+
+
+def dist_pass_checks(sim, dev):
+    """Rank 0: the last step's force pass against the direct sweep and
+    against the single-device solver's pass on the same state.  The
+    distributed step computes every particle's force every step, at the
+    positions it leaves them (its kick moves only velocities)."""
+    from ngravs_tpu_torch.ops.direct import direct_forces
+    from ngravs_tpu_torch.ops.solver import GravitySolver
+    pg, _ = sim.gather_ordered()
+    if sim.mesh.rank != 0:
+        return {}
+    p = pg.to(dev)
+    acc = p.accel + p.accel_pm
+    solver = GravitySolver(sim.cfg, sim.wiring, sim.force_soft, sim.units.G,
+                           hubble=sim.units.hubble, device=dev)
+    p_all = p.replace(ti_endstep=torch.zeros_like(p.ti_endstep))
+    solver.compute(p_all, 0, p.n)
+    single = solver.compute(p_all, 0, p.n)[0].accel
+    fsoft = torch.as_tensor(sim.force_soft, device=dev)[p.ptype.long()]
+    acc_d, _ = direct_forces(sim.wiring, p.pos, p.mass, p.grav, fsoft,
+                             chunk=1024, want_pot=False)
+    acc_d = acc_d * sim.units.G
+
+    def rms(a, ref):
+        rel = torch.linalg.norm(a - ref, dim=1) \
+            / torch.clamp(torch.linalg.norm(ref, dim=1), min=1e-12)
+        return float(torch.sqrt(torch.mean(rel * rel)))
+    return dict(rms_direct=rms(acc, acc_d), rms_single=rms(acc, single),
+                single_direct=rms(single, acc_d),
+                momentum=momentum_rate(p.mass, acc),
+                finite=bool(torch.isfinite(acc).all()))
+
+
+def dist_open(mesh, job: dict, run_dir: str):
+    """11a on one rank: DIST_STEPS steps, one force pass checked; with
+    `repeat`, the same run again, bit for bit."""
+    dev = mesh.device
+    sim = dist_sim(mesh, job, os.path.join(run_dir, job["name"]))
+    out = dist_drive(mesh, sim, DIST_STEPS, job["name"])
+    out.update(dist_pass_checks(sim, dev))
+    if job.get("repeat"):
+        again = dist_sim(mesh, job, os.path.join(run_dir,
+                                                 job["name"] + "_again"))
+        for _ in range(DIST_STEPS):
+            again.step()
+        a, _ = sim.gather_ordered()
+        b, _ = again.gather_ordered()
+        out["repeat"] = all(torch.equal(getattr(a, k), getattr(b, k))
+                            for k in ("pos", "vel", "accel", "ti_endstep"))
+        again.close()
+    sim.close()
+    return out
+
+
+def dist_box(mesh, job: dict, run_dir: str):
+    """11b on one rank: DIST_BOX_STEPS steps with FORCETEST; with `pm`
+    the slab PM against the single-device PM; with `files` the multi-file
+    snapshot and a restart round trip."""
+    from ngravs_tpu_torch.io.gadget_format import read_snapshot_set
+    dev = mesh.device
+    log_dir = os.path.join(run_dir, job["name"])
+    ft = os.path.join(log_dir, "forcetest.txt")
+    if mesh.rank == 0 and os.path.exists(ft):
+        os.remove(ft)
+    sim = dist_sim(mesh, job, log_dir)
+    out = dist_drive(mesh, sim, DIST_BOX_STEPS, job["name"])
+    out["forcetest"] = forcetest_steps(ft) if mesh.rank == 0 else []
+    if job.get("pm"):
+        spm = sim._step_pm_fn.pm_sharded
+        p = sim.p
+        mass = torch.where(p.pid >= 0, p.mass, 0.0)
+        ms = cuda_ms(lambda: spm.forces(p.pos, mass, p.grav), 3)
+        # float32 as the run computes it, then both solvers in float64 on
+        # the same state: what is left there is not rounding
+        for dt, key in ((torch.float32, "pm_err"), (torch.float64,
+                                                    "pm_err64")):
+            pos, m = p.pos.to(dt), mass.to(dt)
+            acc = spm.forces(pos, m, p.grav)
+            rows = mesh.all_gather(torch.cat(
+                [acc, pos, m[:, None], p.grav.to(dt)[:, None]], dim=1))
+            if mesh.rank == 0:
+                single = sim.solver.pm
+                args = (rows[:, 3:6].contiguous(), rows[:, 6].contiguous(),
+                        rows[:, 7].to(torch.int32))
+                ref = single.forces(*args)
+                out[key] = float((rows[:, 0:3] - ref).abs().max()
+                                 / ref.abs().max())
+                if dt == torch.float32:
+                    out["pm_ms"] = ms
+                    out["pm_single_ms"] = cuda_ms(
+                        lambda: single.forces(*args), 3)
+    if job.get("files"):
+        base = sim.write_snapshot_now(os.path.join(log_dir, "dist_snap"))
+        pg, _ = sim.gather_ordered()
+        if mesh.rank == 0:
+            snap = read_snapshot_set(base)
+            o = np.argsort(snap.pid.astype(np.int64))
+            out["snapshot_equal"] = bool(
+                np.array_equal(snap.pos[o], pg.pos.numpy())
+                and np.array_equal(snap.pid[o].astype(np.int64),
+                                   pg.pid.numpy().astype(np.int64) + 0)
+                and np.array_equal(snap.mass[o], pg.mass.numpy()))
+        path = sim.save_restart(os.path.join(log_dir, "restart_dist.npz"))
+        again = dist_sim(mesh, job, log_dir + "_resumed")
+        again.resume(path)
+        qg, _ = again.gather_ordered()
+        out["restart_equal"] = all(
+            torch.equal(getattr(pg, f), getattr(qg, f))
+            for f in vars(pg)) and (again.ti_current, again.pm_ti_begstep,
+                                    again.pm_ti_endstep) == (
+            sim.ti_current, sim.pm_ti_begstep, sim.pm_ti_endstep)
+        again.close()
+    sim.close()
+    return out
+
+
+def dist_rank(mesh, out: str, jobs, run_dir: str):
+    """One rank of a phase-11 launch: every job in order, its numbers to
+    `out.<rank>.json`."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    t0 = time.perf_counter()
+    x = mesh.all_gather(torch.ones(4, device=mesh.device))
+    if mesh.rank == 0:
+        print(f"  {mesh.size} rank(s) over {mesh.backend} met: first "
+              f"collective {time.perf_counter() - t0:.2f} s, sum "
+              f"{float(x.sum())}", flush=True)
+    for job in jobs:
+        fn = dist_open if job["kind"] == "open" else dist_box
+        t0 = time.perf_counter()
+        res[job["name"]] = fn(mesh, job, run_dir)
+        if mesh.rank == 0:
+            print(f"  {job['name']}: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+    with open(f"{out}.{mesh.rank}.json", "w") as f:
+        json.dump(dict(res, device=str(mesh.device), backend=mesh.backend),
+                  f)
+
+
+def dist_launch(world: int, backend: str, jobs, run_dir: str, tag: str):
+    from ngravs_tpu_torch.parallel.mesh import launch
+    out = os.path.join(run_dir, tag)
+    for r in range(world):
+        if os.path.exists(f"{out}.{r}.json"):
+            os.remove(f"{out}.{r}.json")
+    t0 = time.perf_counter()
+    launch(dist_rank, world, backend=backend, device=DIST_DEVICE,
+           args=(out, jobs, run_dir))
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(world):
+        with open(f"{out}.{r}.json") as f:
+            ranks.append(json.load(f))
+    return ranks, wall
+
+
+def distributed_paths(card: str):
+    """Phase 11: the 60k open box and the 2 x 64^3 TreePM box on 1 rank
+    over NCCL and 2 ranks over gloo sharing the card, replicated and LET,
+    through `DistributedSimulation`; one `--devices 2` run through the
+    command line.  Returns each configuration's numbers by rank."""
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_dist")
+    os.makedirs(run_dir, exist_ok=True)
+    open_param = write_galaxy_collision(run_dir)
+    box_param = write_cosmo_box(run_dir)
+    jobs = {}
+    for world in (1, 2):
+        jobs[world] = [
+            dict(name=f"open_rep_{world}", kind="open", param=open_param,
+                 let=False, repeat=world == 2),
+            dict(name=f"open_let_{world}", kind="open", param=open_param,
+                 let=True),
+            dict(name=f"box_rep_{world}", kind="box", param=box_param,
+                 let=False, pm=True),
+            dict(name=f"box_let_{world}", kind="box", param=box_param,
+                 let=True, files=world == 2)]
+    results = {}
+    for world, backend in DIST_LAUNCHES:
+        ranks, wall = dist_launch(world, backend, jobs[world], run_dir,
+                                  f"launch_{world}")
+        stamp(f"phase 11, {world} rank(s) over {backend}")
+        for job in jobs[world]:
+            per = [r[job["name"]] for r in ranks]
+            results[job["name"]] = per
+            report_dist_job(job, per, world, backend, card)
+    # one run through the command line: the mpirun -n 2 analog
+    short = rewrite_param(open_param, os.path.join(run_dir, "cli.param"),
+                          TimeMax=0.002, TimeBetSnapshot=0.001,
+                          TimeOfFirstSnapshot=0.001, MaxSizeTimestep=0.0005,
+                          OutputDir=os.path.join(run_dir, "cli"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "ngravs_tpu_torch.run", short,
+                        "--devices", "2", "--backend", "gloo", "--device",
+                        DIST_DEVICE], cwd=ROOT, capture_output=True,
+                       text=True, timeout=600)
+    lines = r.stdout.strip().splitlines()
+    print(f"--devices 2 --backend gloo [{card}]: exit {r.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s; " + " | ".join(lines[-3:]),
+          flush=True)
+    if r.returncode != 0 or "over gloo" not in lines[0] \
+            or not lines[-1].startswith("done:"):
+        raise AssertionError("the --devices 2 run failed:\n"
+                             + r.stderr[-3000:])
+    stamp("phase 11, the --devices 2 command line")
+    return results
+
+
+def report_dist_job(job: dict, per, world: int, backend: str, card: str):
+    """Print one configuration's numbers and hold them to phase 11's
+    gates."""
+    name = job["name"]
+    r0 = per[0]
+    single = SINGLE["open" if job["kind"] == "open" else "box"]["rate"]
+    rate = r0["updates"] / max(r["wall"] for r in per)
+    print(f"{name} [{card}]: {world} rank(s) over {backend}, "
+          f"{'LET' if job['let'] else 'replicated'}: {r0['updates']} "
+          f"particle-steps = {rate:.1f} particle-steps/s (single device "
+          f"{single:.1f}); sync points {r0['syncs']}; K1 launches by rank "
+          f"{[r['counts'] for r in per]}; last step: host syncs by rank "
+          f"{[r['host_syncs'] for r in per]}, collective bytes sent by rank "
+          f"{[r['bytes'] for r in per]} in {r0['calls']} calls"
+          + (f", LET rows received by rank {[r['let_rows'] for r in per]}"
+             if job["let"] else "")
+          + f"; cap retries {r0['cap_retries']}", flush=True)
+    inst = "K1a" if job["kind"] == "open" else "K1bcd"
+    for r in per:
+        if sum(v for k, v in r["counts"].items()
+               if k.startswith(inst)) <= 0:
+            raise AssertionError(f"{name}: a rank never launched {inst}: "
+                                 f"{r['counts']}")
+        if not r["finite"]:
+            raise AssertionError(f"{name}: non-finite state")
+    if len(set(map(tuple, (r["timeline"] for r in per)))) != 1:
+        raise AssertionError(f"{name}: the ranks' timelines differ")
+    syncs = r0["syncs"]
+    if job["kind"] == "open":
+        print(f"{name} force pass [{card}]: rms rel err vs direct "
+              f"{r0['rms_direct']:.3e}, vs the single-device pass "
+              f"{r0['rms_single']:.3e} (single vs direct "
+              f"{r0['single_direct']:.3e}), momentum rate "
+              f"{r0['momentum']:.2e}"
+              + (f"; two runs bit-identical {r0['repeat']}"
+                 if "repeat" in r0 else ""), flush=True)
+        if not (r0["finite"] and r0["rms_direct"] < RMS_TREE
+                and r0["rms_single"] < RMS_DIST
+                and r0["momentum"] < MOMENTUM_RATE):
+            raise AssertionError(f"{name}: force-pass gates failed")
+        if any(b <= a for a, b in zip(syncs, syncs[1:])) \
+                or len(syncs) != DIST_STEPS:
+            raise AssertionError(f"{name}: the sync points did not advance")
+        if r0.get("repeat") is False:
+            raise AssertionError(f"{name}: two runs differ")
+        return
+    check_forcetest(name, os.path.join(ROOT, "build", "chip_smoke_dist",
+                                       name, "forcetest.txt"),
+                    card, RMS_TREEPM, 1, DIST_BOX_STEPS)
+    want = SINGLE["box"]["timeline"]
+    print(f"{name} timeline [{card}]: (ti, PM window) {r0['timeline']}, "
+          f"single device {want}"
+          + (f"; slab PM vs single-device PM max|da| / max|a| "
+             f"{r0['pm_err']:.3e} (float64 {r0['pm_err64']:.3e}), "
+             f"{r0['pm_ms']:.2f} ms against {r0['pm_single_ms']:.2f} ms "
+             "(median of 3, CUDA events)"
+             if "pm_err" in r0 else "")
+          + (f"; multi-file snapshot equal {r0['snapshot_equal']}, restart "
+             f"round trip bit for bit {r0['restart_equal']}"
+             if "snapshot_equal" in r0 else ""), flush=True)
+    if r0["timeline"] != want:
+        raise AssertionError(f"{name}: timeline {r0['timeline']} against "
+                             f"the single device's {want}")
+    if "pm_err" in r0 and not (r0["pm_err"] < PM_SHARDED_TOL
+                               and r0["pm_err64"] < PM_F64_TOL):
+        raise AssertionError(f"{name}: slab PM error {r0['pm_err']}, "
+                             f"float64 {r0['pm_err64']}")
+    if "snapshot_equal" in r0 and not (r0["snapshot_equal"]
+                                       and all(r["restart_equal"]
+                                               for r in per)):
+        raise AssertionError(f"{name}: snapshot or restart round trip")
+
+
+# --------------------------------------------------------------------------
 
 def kernel_entry(name: str, launches: int, nums: dict, errs) -> dict:
     return {"name": name, "route": "cuda",
@@ -2197,6 +2620,40 @@ def kernel_entry(name: str, launches: int, nums: dict, errs) -> dict:
             "ms": nums["ms"], "plain_ms": nums["plain_ms"],
             "bound_ms": nums["bound_ms"], "bound_by": nums["bound_by"],
             "library_ms": None, "plan": nums["plan"]}
+
+
+DIST_KINDS = {"open_rep": "60k open box, replicated step",
+              "open_let": "60k open box, LET step's local tree",
+              "box_rep": "2 x 64^3 TreePM box, replicated step",
+              "box_let": "2 x 64^3 TreePM box, LET step's local tree"}
+
+
+def dist_entries(results) -> list:
+    """Phase 11's K1 entries, one per instance, IC and step: the launches
+    of every rank of its 1- and 2-rank runs, and the numbers of rank 0's
+    check on the larger of the two runs' largest launches."""
+    groups = {}
+    for job, per in results.items():
+        kind = job.rsplit("_", 1)[0]
+        for r in per:
+            for name, v in r["counts"].items():
+                g = groups.setdefault((name, kind), dict(launches=0,
+                                                         nums=None, errs=[]))
+                g["launches"] += v
+        for name, nums in per[0]["k1"].items():
+            g = groups[(name, kind)]
+            g["errs"].append(nums["max_abs_err"])
+            if g["nums"] is None or nums["rows"] > g["nums"]["rows"]:
+                g["nums"] = nums
+    entries = []
+    for (name, kind), g in sorted(groups.items()):
+        if g["nums"] is None:
+            raise AssertionError(f"phase 11: {name} ({kind}) launched on a "
+                                 "rank but never checked on rank 0")
+        entries.append(kernel_entry(
+            f"{name} (phase 11, {DIST_KINDS[kind]}, 1 rank over NCCL + 2 "
+            "ranks over gloo)", g["launches"], g["nums"], g["errs"]))
+    return entries
 
 
 def main() -> int:
@@ -2257,6 +2714,7 @@ def main() -> int:
     stamp("phase 10b (FLEXSTEPS, PSEUDOSYMMETRIC)")
     sheet_path(dev, card)
     stamp("phase 10c (TWODIMS, LONG_X)")
+    dist = distributed_paths(card)
 
     entries = [kernel_entry("K1a (slice 1 path, open box, one Newton law)",
                             launches1, galaxy_batch,
@@ -2276,6 +2734,7 @@ def main() -> int:
                kernel_entry(f"{glass_batch['name']} (glass path, one Newton "
                             "law periodic TreePM)", launches5, glass_batch,
                             [glass_batch["max_abs_err"]])]
+    entries += dist_entries(dist)
     path_counts = {box_batch["name"]: launches2 + launches3,
                    glass_batch["name"]: launches5}
     for case, rep in synthetic.items():

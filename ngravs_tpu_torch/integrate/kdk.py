@@ -119,7 +119,10 @@ def compute_timestep_ticks(cfg, p, dt_displacement: float,
     # its reciprocal, which can round differently at a bin edge)
     tbi = torch.tensor(timebase_interval(cfg), dtype=torch.float32,
                        device=dt.device)
-    ti_step = torch.clamp((dt / tbi).to(torch.int32), 1, TIMEBASE)
+    # clamped before the cast: a step longer than the whole timeline
+    # saturates, as XLA's conversion does, where a bare cast would wrap
+    ti_step = torch.clamp(torch.clamp(dt / tbi, max=TIMEBASE)
+                          .to(torch.int32), 1, TIMEBASE)
     return pow2_floor_i32(ti_step)
 
 
@@ -187,7 +190,8 @@ def _pseudosymmetric(cfg, p, active, ti_step, dt_displacement, soft_table,
     hi = _f32(min(cfg.max_size_timestep, float(dt_displacement)), dev)
     dt2 = torch.minimum(torch.clamp(dt2, min=cfg.min_size_timestep), hi)
     tbi = _f32(timebase_interval(cfg), dev)
-    ti2 = pow2_floor_i32(torch.clamp((dt2 / tbi).to(torch.int32), 1,
+    ti2 = pow2_floor_i32(torch.clamp(torch.clamp(dt2 / tbi, max=TIMEBASE)
+                                     .to(torch.int32), 1,
                                      TIMEBASE))
     # the acceleration equivalent of dt = ti_step and 2 ti_step
     # (get_timestep's flag > 0 branch, timestep.c:475-487)

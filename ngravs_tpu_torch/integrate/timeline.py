@@ -79,4 +79,6 @@ def pm_window_update(ti_next: int, pm_beg: int, pm_end: int,
     function computes it: f32(dt_disp) / tbi in f32, truncated."""
     step = torch.tensor(dt_disp, dtype=torch.float32) \
         / torch.tensor(tbi, dtype=torch.float32)
+    # saturating, as XLA's conversion is (pm_window clamps to TIMEBASE)
+    step = torch.clamp(step, max=TIMEBASE)
     return pm_window(ti_next, pm_beg, pm_end, int(step.to(torch.int32)))

@@ -103,3 +103,32 @@ def simulation_from_state(state: dict, device, log_dir: str = ""):
     if "next_stats" in state:
         sim._next_stats = float(state["next_stats"])
     return sim
+
+
+def particle_shard_from_numpy(arrays: dict, rank: int, world: int,
+                              device) -> Particles:
+    """Rank `rank`'s rows of a particle state sharded over `world` devices
+    ({field: array} of the whole padded state, as the JAX package's
+    `shard_particles` lays it out: N a multiple of `world`, each device a
+    contiguous block, padding rows included)."""
+    n = np.asarray(arrays["pos"]).shape[0]
+    if n % world:
+        raise ValueError(f"{n} rows do not split over {world} ranks")
+    nloc = n // world
+    return particles_from_numpy(
+        {f.name: np.asarray(arrays[f.name])[rank * nloc:(rank + 1) * nloc]
+         for f in dataclasses.fields(Particles)}, device)
+
+
+def read_distributed_restart(path: str) -> dict:
+    """A multi-device restart file (the JAX package's
+    `DistributedSimulation.save_restart` layout, which this package writes
+    too): {"particles": {field: array}, "sph": {field: array} or None,
+    "scalars": {name: value}}.  A file without `p_aphys_old` gets zeros."""
+    z = np.load(path)
+    parts = {k[2:]: z[k] for k in z.files if k.startswith("p_")}
+    parts.setdefault("aphys_old", np.zeros_like(parts["old_acc"]))
+    sph = {k[2:]: z[k] for k in z.files if k.startswith("s_")} or None
+    scalars = {k: z[k][()] for k in z.files
+               if not k.startswith(("p_", "s_"))}
+    return {"particles": parts, "sph": sph, "scalars": scalars}

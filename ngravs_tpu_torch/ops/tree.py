@@ -180,17 +180,22 @@ def build_tree(pos, mass, grav, fsoft, aold, hsml=None,
                depth: int = 8, n_gravs: int = 1, bucket: int = 32,
                box_size: float = 0.0, group_size: int = 64,
                group_thresh: int | None = None,
-               ngrp_cap: int | None = None, vel=None) -> Octree:
+               ngrp_cap: int | None = None, vel=None,
+               corner=None, root_len=None) -> Octree:
     """Construct the octree (force_treebuild, forcetree.c:61-763).
 
     Periodic runs pass box_size > 0: the root cell is the box itself
     (positions already wrapped).  Otherwise the root is the particle
-    bounding cube (domain_findExtent, domain.c:882)."""
+    bounding cube (domain_findExtent, domain.c:882), unless `corner` and
+    `root_len` give it (a shard's tree on the global root cell)."""
     if depth > MAX_DEPTH:
         raise ValueError(f"depth {depth} > {MAX_DEPTH}")
     dev = pos.device
     n = pos.shape[0]
-    if box_size > 0:
+    if corner is not None:
+        corner = torch.as_tensor(corner, dtype=pos.dtype, device=dev)
+        root_len = torch.as_tensor(root_len, dtype=pos.dtype, device=dev)
+    elif box_size > 0:
         corner = torch.zeros(3, dtype=pos.dtype, device=dev)
         root_len = torch.tensor(box_size, dtype=pos.dtype, device=dev)
     else:

@@ -80,6 +80,10 @@ class Particles:
     def device(self) -> torch.device:
         return self.pos.device
 
+    def to(self, device) -> "Particles":
+        return Particles(**{f.name: getattr(self, f.name).to(device)
+                            for f in dataclasses.fields(self)})
+
     @staticmethod
     def create(pos, vel, mass, pid, ptype, type_to_grav,
                device) -> "Particles":

@@ -790,3 +790,41 @@ def test_drift_walk_tables_on_cuda_matches_cpu(cuda):
     for name in ("gsrc", "wtab8"):
         assert torch.equal(getattr(gpu, name).cpu().view(torch.int32),
                            getattr(cpu, name).view(torch.int32)), name
+
+
+def test_distributed_one_rank_over_nccl_matches_single_device(cuda,
+                                                             tmp_path):
+    """A 1-rank `DistributedSimulation` over NCCL on cuda:0 (the replicated
+    step, its padding rows at the origin inside the halo) against the
+    single-device `Simulation` on the same card, one step: the same sync
+    point, accelerations within rms 5e-3 of each other, K1 launched by the
+    rank."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_parallel_ranks as R
+    kw = dict(time_begin=0.0, time_max=1.0, gravity_constant_internal=1.0,
+              softening=(0.02,) * 6, max_size_timestep=0.02, n_gravs=1,
+              type_to_grav=(0,) * 6, wiring="newton", solver="tree",
+              type_of_opening_criterion=0, err_tol_int_accuracy=0.02)
+    rng = np.random.default_rng(13)
+    n = 8192
+    r = 0.05 + 3.0 * rng.random(n) ** 3
+    u = rng.normal(size=(n, 3))
+    pos = r[:, None] * u / np.linalg.norm(u, axis=1, keepdims=True)
+    vel = rng.normal(0, 0.05, (n, 3))
+    path = str(tmp_path / "in.npz")
+    np.savez(path, pos=pos, vel=vel, mass=np.full(n, 1.0 / n),
+             pid=np.arange(n), ptype=np.ones(n, np.int32))
+    o = R.run_ranks(R.simulate, 1, tmp_path, kw, path, dict(steps=1),
+                    backend="nccl", device="cuda")[0]
+    sim = Simulation(SimulationConfig(**kw), particles=Particles.create(
+        pos, vel, np.full(n, 1.0 / n), np.arange(n), np.ones(n), kw[
+            "type_to_grav"], device=cuda), log_dir="")
+    sim.step()
+    assert o["syncs"][0, 0] == sim.ti_current
+    a = sim.p.accel.cpu().numpy()
+    rel = np.linalg.norm(o["accel"] - a, axis=1) \
+        / np.maximum(np.linalg.norm(a, axis=1), 1e-12)
+    assert np.sqrt(np.mean(rel ** 2)) < 5e-3
+    assert int(o["k1"]) > 0

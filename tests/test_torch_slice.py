@@ -176,7 +176,9 @@ def test_stop_file_and_unported_options(tmp_path):
     again.resume()
     assert again.ti_current == sim.ti_current
     assert torch.equal(again.p.vel, sim.p.vel)
-    with pytest.raises(NotImplementedError, match="item 18"):
+    # --devices runs ranks now (ROADMAP item 18a); a launch the machine
+    # cannot carry refuses before any rank starts, naming what to ask for
+    with pytest.raises(RuntimeError, match="--device cpu|--backend gloo"):
         trun.main([str(param), "--devices", "4"])
     # segments (ROADMAP item 10a) run: two calls of a segment_steps=4 run
     # advance the timeline and count their steps

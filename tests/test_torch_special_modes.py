@@ -280,3 +280,81 @@ def test_flexsteps_restart_round_trip(tmp_path):
     assert torch.equal(fresh.p.pos, sim.p.pos)
     assert (fresh.present_min_step, fresh.present_max_step) == \
         (sim.present_min_step, sim.present_max_step)
+
+
+def test_steps_longer_than_the_timeline_saturate_as_jax():
+    """A timestep longer than the whole timeline (dt / TimeBase_interval
+    past 2^31) saturates at TIMEBASE in the f32 -> int32 conversion, as
+    XLA's does, in the step criterion, PSEUDOSYMMETRIC's predicted step
+    and the PM window; a bare cast would wrap it to one tick."""
+    from ngravs_tpu import units as junits
+    from ngravs_tpu.constants import TIMEBASE
+    from ngravs_tpu.cosmology import LinearTables as JTables
+    from ngravs_tpu.integrate import kdk as jkdk
+    from ngravs_tpu.integrate import timeline as jtl
+    from ngravs_tpu_torch.cosmology import LinearTables as TTables
+    from ngravs_tpu_torch.integrate import kdk as tkdk
+    from ngravs_tpu_torch.integrate import timeline as ttl
+
+    kw = dict(time_begin=0.0, time_max=1.0, gravity_constant_internal=1.0,
+              softening=(0.05,) * 6, max_size_timestep=100.0,
+              err_tol_int_accuracy=0.025, pseudosymmetric=True,
+              wiring="newton")
+    jcfg, tcfg = JConfig(**kw), TConfig(**kw)
+    tbi = ttl.timebase_interval(tcfg)
+    # dt / tbi from 2^28 to 2^33 (the criterion dt = sqrt(2 eta eps / a));
+    # the acceleration 10% below its last value predicts a step 1.12x
+    # longer, so near 2^31 only the predicted step passes the int32 range
+    n = 400
+    ticks = 2.0 ** np.linspace(28, 33, n)
+    eps = 0.05 / 2.8
+    a = 2 * kw["err_tol_int_accuracy"] * eps / (ticks * tbi) ** 2
+    accel = np.zeros((n, 3), np.float32)
+    accel[:, 0] = a
+    old = 1 << 28
+    soft = np.full(6, eps, np.float32)
+    rnd = np.random.default_rng(42).uniform(size=n).astype(np.float32)
+    pos = np.random.default_rng(0).normal(size=(n, 3))
+    args = (pos, np.zeros((n, 3)), np.full(n, 1.0 / n), np.arange(n),
+            np.ones(n, np.int32))
+    jp = JParticles.create(*args, jcfg.type_to_grav)
+    jp = jp.replace(accel=jp.accel.at[:].set(accel),
+                    aphys_old=jp.aphys_old.at[:].set(1.1 * a),
+                    ti_begstep=jp.ti_begstep.at[:].set(-old),
+                    ti_endstep=jp.ti_endstep.at[:].set(0))
+    tp = TParticles.create(*args, tcfg.type_to_grav, device="cpu")
+    tp = tp.replace(accel=torch.as_tensor(accel),
+                    aphys_old=torch.as_tensor(1.1 * a, dtype=torch.float32),
+                    ti_begstep=torch.full((n,), -old, dtype=torch.int32),
+                    ti_endstep=torch.zeros(n, dtype=torch.int32))
+    units = junits.set_units(jcfg)
+    cf = jkdk.cosmo_factors(jcfg, units, 0.0)
+
+    want = np.asarray(jkdk.compute_timestep_ticks(
+        jcfg, units, jp, None, cf, 100.0, soft))
+    got = tkdk.compute_timestep_ticks(tcfg, tp, 100.0,
+                                      torch.as_tensor(soft)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got[ticks >= 2.0 ** 29] == TIMEBASE).all()
+
+    # PSEUDOSYMMETRIC from tick 0 (every step lands on an aligned tick):
+    # the new step ends and aphys_old equal
+    jq, _ = jkdk.kick(jcfg, units, jp, None, JTables(tbi), 0, 100.0, soft,
+                      0.0, rnd_table=rnd)
+    tq, _ = tkdk.kick(tcfg, tp, TTables(tbi), 0, 100.0,
+                      torch.as_tensor(soft), rnd_table=torch.as_tensor(rnd))
+    np.testing.assert_array_equal(tq.ti_endstep.numpy(),
+                                  np.asarray(jq.ti_endstep))
+    np.testing.assert_array_equal(tq.aphys_old.numpy(),
+                                  np.asarray(jq.aphys_old))
+    assert int(tq.ti_endstep.max()) == TIMEBASE
+
+    # the PM window from a constraint of 2^32 ticks
+    for ti_next, beg, end in ((0, 0, 0), (1 << 20, 0, 1 << 20)):
+        want = [int(x) for x in jtl.pm_window_update(ti_next, beg, end,
+                                                      2.0 ** 32 * tbi, tbi)]
+        got = list(ttl.pm_window_update(ti_next, beg, end, 2.0 ** 32 * tbi,
+                                        tbi))
+        assert got == want, (ti_next, got, want)
+        if ti_next == 0:
+            assert got[3] - got[2] == TIMEBASE
