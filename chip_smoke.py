@@ -129,25 +129,50 @@ Phases (any failure raises and exits non-zero):
     single-device solver's pass on the same state, momentum rate < 1e-3,
     the sync points advancing, two 2-rank runs bit-identical; the box's
     FORCETEST rms < 2.5e-2 on each PM step, its timeline and PM window
-    equal to phase 5's single-device run, the slab PM within 2e-5 of
-    max|a| of the single-device PM in float32 and within 1e-10 with both
-    in float64, the 2-rank multi-file snapshot read back equal to
+    equal to phase 5's single-device run at the same step, the slab PM
+    within 2e-5 of max|a| of the single-device PM in float32 and within
+    1e-10 with both in float64, the 2-rank multi-file snapshot read back equal to
     `gather_ordered()` and a restart round trip bit for bit.  Printed
     beside each: particle-steps/s (and the single device's), the K1
     launches by rank, the host syncs of a step, the bytes each rank sends
     in collectives in a step, the LET rows received.  The kernels line
     has an entry of its own for each instance, IC and step of phase 11.
     Then `python -m ngravs_tpu_torch.run <param> --devices 2 --backend
-    gloo` on a short open-box run must end with 0.
+    gloo` on a short open-box run must end with 0;
+12. multi-device gas: slice 3's gas box (phase 6's IC, FORCETEST on each
+    PM step, u turned into entropy by a density pass before the first
+    step, from phase 6's first smoothing length) through
+    `DistributedSimulation` with the replicated and the LET full step
+    (`parallel/full_sharded.py`, `parallel/full_let_sharded.py`), on 1
+    rank over NCCL and 2 ranks over gloo sharing the card, DIST_GAS_STEPS
+    steps each.  Gates: every rank launches K1bcd, rank 0's largest launch
+    of each configuration against the twin; FORCETEST rms < 2.5e-2 on each
+    PM step; the timeline equal to phase 6's; the first step against phase
+    6's first step (density and Hsml within 2e-3 relative, the hydro
+    acceleration within 3e-3 of its largest |a|, gravity within rms 2e-2);
+    phase 6's gas-state gates on the last state; the first steps of two
+    2-rank replicated runs bit-identical; the 2-rank multi-file snapshot
+    (U, RHO and HSML included) equal to `gather_ordered()` and a restart
+    round trip bit for bit.  Printed beside each: particle-steps/s (and
+    phase 6's), the ghost rows each rank receives in rounds A and B, the
+    LET gravity rows, density iterations, cand_cap, the ghost-cap growths
+    and margin reruns, host syncs, collective bytes and the SPH passes'
+    seconds of the last step.  Then a 2-step `--devices 2 --backend gloo`
+    gas run through the command line (the scheme at 2 x 32^3, periodic
+    pure tree: a parameterfile cannot ask for PMGRID) must end with 0 and
+    write a snapshot with its gas blocks.
 
-The line before the last is the card's name and power limit, the one
-before it a JSON object with every K1 instance's numbers; the last line is
+`python3 chip_smoke.py --phases 6,12` runs the named phases alone (phase
+12 needs phase 6's run).  The line before the last is the card's name and
+power limit, the one before it a JSON object with every K1 instance's
+numbers (phases 11 and 12: one per instance, IC and step); the last line is
 {"ok": true, "device": {...}}.  Every time printed is from this run, on the
 card named above it.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -226,7 +251,13 @@ SHEET_NGB, SHEET_NGB_DEV = 20, 2
 # (tests/test_parallel.py:183); both in float64: PM_F64_TOL (the float32
 # difference is the FFTs' rounding; tests/test_torch_parallel_pm.py reads
 # 1e-12 on the CPU)
-DIST_STEPS, DIST_BOX_STEPS = 10, 3
+DIST_STEPS, DIST_BOX_STEPS = 10, 2
+# phase 12: multi-device gas on slice 3's box, DIST_GAS_STEPS steps; the
+# first step against phase 6's within JAX's own bounds
+# (tests/test_parallel.py:261-264): density and Hsml rtol 2e-3, hydro 3e-3
+# of its largest |a|, gravity rms RMS_DIST
+DIST_GAS_STEPS = 2
+CLI_NSIDE = 32
 RMS_DIST, PM_SHARDED_TOL, PM_F64_TOL = 2e-2, 2e-5, 1e-10
 DIST_DEVICE, DIST_LAUNCHES = "cuda", ((1, "nccl"), (2, "gloo"))
 # synthetic K1 instances: label -> (wiring, n_gravs, periodic, TreePM,
@@ -977,7 +1008,16 @@ def box_path(dev, card: str):
             or sim.solver.uses_direct(n):
         raise AssertionError("the box path must run TreePM at 2 x 64^3")
 
+    # each step's timeline, for phase 11's runs of fewer steps
+    syncs = []
+    one_step = sim.step
+
+    def step_and_record():
+        one_step()
+        syncs.append([sim.ti_current, sim.pm_ti_begstep, sim.pm_ti_endstep])
+    sim.step = step_and_record
     steps, wall, counts = run_path(sim, BOX_STEPS)
+    del sim.step
     launches = sum(counts.values())
     k1bcd = sum(v for k, v in counts.items() if k.startswith("K1bcd"))
     if k1bcd <= 0:
@@ -1000,9 +1040,7 @@ def box_path(dev, card: str):
           flush=True)
     # FORCETEST runs on the PM steps (gravtree_forcetest.c:46-49)
     check_forcetest("box path", ft_path, card, RMS_TREEPM, 1, steps)
-    SINGLE["box"] = dict(rate=sim.num_force_updates / wall,
-                         timeline=[sim.ti_current, sim.pm_ti_begstep,
-                                   sim.pm_ti_endstep])
+    SINGLE["box"] = dict(rate=sim.num_force_updates / wall, syncs=syncs)
     stamp("box path run")
 
     # one full TreePM pass at the final state: the short-range walk and PM
@@ -1152,8 +1190,9 @@ def check_reproducible(sim, solver, cfg, dev, card: str, run_dir: str):
 # phase 6: slice 3, the gas box (TreePM + SPH)
 # --------------------------------------------------------------------------
 
-def write_gas_box(run_dir: str, seed: int = 42) -> str:
-    """2 x BOX_NSIDE^3 particles on jittered lattices (jitter 2% of the
+def write_gas_box(run_dir: str, seed: int = 42, ns: int | None = None,
+                  name: str = "gas_box") -> str:
+    """2 x ns^3 particles on jittered lattices (jitter 2% of the
     spacing; examples/cosmological_box.py:53-73): gas (type 0, gravity 0)
     with OmegaBaryon / Omega0 of the box mass and IC internal energy u = 1
     (km/s)^2, dark matter (type 1, gravity 1) half a cell off.  Masses
@@ -1164,7 +1203,8 @@ def write_gas_box(run_dir: str, seed: int = 42) -> str:
                                                    SnapshotHeader,
                                                    write_snapshot)
     from ngravs_tpu_torch.units import set_units
-    omega0, omega_b, box, ns = 0.3, 0.04, BOX_SIZE, BOX_NSIDE
+    omega0, omega_b, box = 0.3, 0.04, BOX_SIZE
+    ns = ns or BOX_NSIDE
     units = set_units(SimulationConfig(comoving_integration=True))
     rng = np.random.default_rng(seed)
     g = (np.stack(np.meshgrid(*[np.arange(ns)] * 3, indexing="ij"), -1)
@@ -1183,7 +1223,7 @@ def write_gas_box(run_dir: str, seed: int = 42) -> str:
     h.mass = np.array([m_gas, m_dm, 0.0, 0.0, 0.0, 0.0])
     h.time, h.redshift, h.box_size = 0.1, 9.0, box
     h.omega0, h.omega_lambda, h.hubble_param = omega0, 0.7, 0.7
-    ic = os.path.join(run_dir, "gas_box.IC")
+    ic = os.path.join(run_dir, f"{name}.IC")
     write_snapshot(ic, SnapshotData(
         header=h, pos=np.concatenate([gas, dm]).astype(np.float32),
         vel=rng.normal(0, 1.0, (2 * n, 3)).astype(np.float32),
@@ -1192,7 +1232,7 @@ def write_gas_box(run_dir: str, seed: int = 42) -> str:
         ptype=np.repeat(np.array([0, 1], np.int32), n),
         u=np.ones(n, np.float32)))
     soft = box / ns / 30
-    return write_param(os.path.join(run_dir, "gas_box.param"), {
+    return write_param(os.path.join(run_dir, f"{name}.param"), {
         "InitCondFile": ic, "OutputDir": run_dir,
         "SnapshotFileBase": "snapshot", "ICFormat": 1, "SnapFormat": 1,
         "ComovingIntegrationOn": 1, "PeriodicBoundariesOn": 1,
@@ -1363,12 +1403,25 @@ def gas_path(dev, card: str):
         raise AssertionError("the gas path must run TreePM + SPH at "
                              "2 x 64^3")
 
+    # phase 12 starts its runs from this run's first smoothing length and
+    # holds their first step to this run's
+    h0 = float(sim.sph.hsml[0])
+    first_path = os.path.join(run_dir, "first_step.npz")
+    syncs = []
     pairwise.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(GAS_STEPS):
+    for k in range(GAS_STEPS):
         before = dict(sim.cpu_timers, **sim.hydro.counts)
         sim.run(max_steps=1)
+        syncs.append([sim.ti_current, sim.pm_ti_begstep, sim.pm_ti_endstep])
+        if k == 0:
+            t_save = time.perf_counter()
+            np.savez(first_path, pid=sim.p.pid.cpu().numpy(),
+                     accel=(sim.p.accel + sim.p.accel_pm).cpu().numpy(),
+                     **{f: getattr(sim.sph, f)[:n_gas].cpu().numpy()
+                        for f in ("density", "hsml", "hydro_accel")})
+            t0 += time.perf_counter() - t_save
         d = {k: v - before[k] for k, v in dict(sim.cpu_timers,
                                                **sim.hydro.counts).items()}
         print(f"gas step {sim.step_count} [{card}]: a={sim.time:.6g}, "
@@ -1383,6 +1436,8 @@ def gas_path(dev, card: str):
     if sum(v for k, v in counts.items() if k.startswith("K1bcd")) <= 0:
         raise AssertionError(f"the gas path never launched the TreePM "
                              f"multi-law K1 instance: {counts}")
+    SINGLE["gas"] = dict(rate=sim.num_force_updates / wall, syncs=syncs,
+                         h0=h0, first=first_path)
     print(f"gas path [{card}]: {GAS_STEPS} steps to a={sim.time:.6g}, "
           f"{sim.num_force_updates} particle-steps in {wall:.2f} s = "
           f"{sim.num_force_updates / wall:.1f} particle-steps/s, K1 "
@@ -2284,36 +2339,45 @@ def dist_sim(mesh, job: dict, log_dir: str):
                                  use_let=job["let"])
 
 
-def dist_drive(mesh, sim, steps: int, label: str):
+def dist_drive(mesh, sim, steps: int, label: str, after=None):
     """`steps` steps with the K1 counts and the collective statistics from
     0, the last step under CUDA's sync debug mode; rank 0 keeps the inputs
     of each K1 instance's largest launch and then holds K1 to its twin on
-    them (after the counts are read).  Returns the rank's numbers."""
+    them (after the counts are read).  `after(k)` runs after step k, its
+    time not counted.  Returns the rank's numbers."""
     from ngravs_tpu_torch.ops import pairwise
     largest = {}
     if mesh.rank == 0:
         sim.solver.pair_eval = record_largest(pairwise.pairwise_eval,
                                               largest)
     pairwise.reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     syncs = []
+    wall = 0.0
     for k in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         if k == steps - 1:
             mesh.reset_stats()
+            sph_s, iters = sim.sph_seconds, dict(sim.hydro.counts) \
+                if sim.hydro else {}
             host_syncs = count_host_syncs(sim.step)
             coll = dict(mesh.stats)
+            sph_s = sim.sph_seconds - sph_s
+            iters = {k: v - iters[k] for k, v in sim.hydro.counts.items()} \
+                if sim.hydro else {}
         else:
             sim.step()
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
         syncs.append(sim.ti_current)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+        if after is not None:
+            after(k)
     counts = dict(pairwise.pairwise_eval.counts)
     sim.solver.pair_eval = pairwise.pairwise_eval
     k1 = {}
     for name, launch in largest.items():
         nums = check_launch_inputs(f"kernel ({label}, {name} largest "
-                                   "launch)", *launch, counts[name])
+                                   "launch)", *launch, counts.get(name, 0))
         nums["rows"] = launch[1].numel()
         k1[name] = nums
     del largest
@@ -2325,7 +2389,7 @@ def dist_drive(mesh, sim, steps: int, label: str):
         timeline=[sim.ti_current, sim.pm_ti_begstep, sim.pm_ti_endstep],
         host_syncs=host_syncs, bytes=coll["bytes"], calls=coll["calls"],
         let_rows=int(rows) if rows is not None else None,
-        cap_retries=sim.cap_retries,
+        cap_retries=sim.cap_retries, sph_s=sph_s, last_counts=iters,
         finite=all(bool(torch.isfinite(getattr(p, k)).all())
                    for k in ("pos", "vel", "accel", "accel_pm")))
 
@@ -2457,9 +2521,12 @@ def dist_rank(mesh, out: str, jobs, run_dir: str):
               f"collective {time.perf_counter() - t0:.2f} s, sum "
               f"{float(x.sum())}", flush=True)
     for job in jobs:
-        fn = dist_open if job["kind"] == "open" else dist_box
+        fn = {"open": dist_open, "box": dist_box, "gas": gas_job}[job["kind"]]
         t0 = time.perf_counter()
         res[job["name"]] = fn(mesh, job, run_dir)
+        # the ranks share the card: hand the job's cached memory back
+        gc.collect()
+        torch.cuda.empty_cache()
         if mesh.rank == 0:
             print(f"  {job['name']}: {time.perf_counter() - t0:.1f} s",
                   flush=True)
@@ -2585,7 +2652,7 @@ def report_dist_job(job: dict, per, world: int, backend: str, card: str):
     check_forcetest(name, os.path.join(ROOT, "build", "chip_smoke_dist",
                                        name, "forcetest.txt"),
                     card, RMS_TREEPM, 1, DIST_BOX_STEPS)
-    want = SINGLE["box"]["timeline"]
+    want = SINGLE["box"]["syncs"][DIST_BOX_STEPS - 1]
     print(f"{name} timeline [{card}]: (ti, PM window) {r0['timeline']}, "
           f"single device {want}"
           + (f"; slab PM vs single-device PM max|da| / max|a| "
@@ -2610,6 +2677,257 @@ def report_dist_job(job: dict, per, world: int, backend: str, card: str):
 
 
 # --------------------------------------------------------------------------
+# phase 12: multi-device gas over torch.distributed
+# --------------------------------------------------------------------------
+
+def gas_dist_sim(mesh, job: dict, log_dir: str, convert: bool = True):
+    """Slice 3's gas box through `DistributedSimulation` (FORCETEST on),
+    its IC's u turned into entropy before the first step (`convert`), from
+    phase 6's first smoothing length."""
+    from ngravs_tpu_torch.config import read_parameter_file
+    from ngravs_tpu_torch.integrate.runner import load_initial_conditions
+    from ngravs_tpu_torch.parallel.runner import DistributedSimulation
+    from ngravs_tpu_torch.units import set_units
+    cfg = read_parameter_file(job["param"], pmgrid=BOX_PMGRID, n_gravs=2,
+                              wiring="newton_yukawa", pm_interlace=True,
+                              force_test=FORCETEST_FRAC)
+    p, sph = load_initial_conditions(cfg, set_units(cfg), device="cpu")
+    sph = sph.replace(hsml=torch.where(p.ptype == 0, job["h0"], 0.0))
+    os.makedirs(log_dir, exist_ok=True)
+    return DistributedSimulation(cfg, p, sph=sph, mesh=mesh, log_dir=log_dir,
+                                 use_let=job["let"], entropy_is_u=convert)
+
+
+def gas_against_first(pg, sg, path: str) -> dict:
+    """The first step's state against phase 6's single-device first step:
+    density and Hsml (largest relative difference), the hydro
+    acceleration (over its largest |a|), gravity (rms relative)."""
+    ref = np.load(path)
+    if not np.array_equal(pg.pid.numpy(), ref["pid"]):
+        raise AssertionError("phase 12: rows out of phase 6's order")
+    n = ref["density"].shape[0]
+    out = {}
+    for k in ("density", "hsml"):
+        out[k] = float((np.abs(getattr(sg, k)[:n].numpy() - ref[k])
+                        / np.abs(ref[k])).max())
+    ha = ref["hydro_accel"]
+    out["hydro"] = float(np.abs(sg.hydro_accel[:n].numpy() - ha).max()
+                         / np.abs(ha).max())
+    a = (pg.accel + pg.accel_pm).numpy()
+    rel = np.linalg.norm(a - ref["accel"], axis=1) \
+        / np.maximum(np.linalg.norm(ref["accel"], axis=1), 1e-30)
+    out["gravity_rms"] = float(np.sqrt(np.mean(rel ** 2)))
+    return out
+
+
+def gas_state_gates(cfg, pg, sg) -> dict:
+    """Phase 6's gas-state numbers on a gathered state."""
+    gas = pg.ptype == 0
+    wngb = sg.num_ngb[gas]
+    ma = pg.mass[gas, None] * sg.hydro_accel[gas]
+    return dict(
+        in_window=float(((wngb - DES_NGB).abs() <= NGB_DEV).double().mean()),
+        rho_med=float(sg.density[gas].double().median())
+        / (float(pg.mass[gas].double().sum()) / cfg.box_size ** 3),
+        momentum=(ma.sum(0).abs() / ma.abs().sum(0).clamp(min=1e-30))
+        .tolist())
+
+
+def gas_job(mesh, job: dict, run_dir: str):
+    """12 on one rank: DIST_GAS_STEPS steps, the first held to phase 6's;
+    with `repeat` a second run's first step against this run's, bit for
+    bit; with `files` the multi-file snapshot and a restart round trip."""
+    from ngravs_tpu_torch.io.gadget_format import read_snapshot_set
+    log_dir = os.path.join(run_dir, job["name"])
+    ft = os.path.join(log_dir, "forcetest.txt")
+    if mesh.rank == 0 and os.path.exists(ft):
+        os.remove(ft)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim = gas_dist_sim(mesh, job, log_dir)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    kept = {}
+
+    def after(k):
+        if k == 0:
+            pg, sg = sim.gather_ordered()
+            if job.get("repeat"):
+                kept["first"] = (pg, sg)
+            if mesh.rank == 0:
+                kept["vs_single"] = gas_against_first(pg, sg, job["first"])
+
+    out = dist_drive(mesh, sim, DIST_GAS_STEPS, job["name"], after=after)
+    out.update(setup=setup, first=kept.get("vs_single"),
+               ghost_rows=sim.ghost_rows, ghost_retries=sim.ghost_retries,
+               cand_cap=sim.hydro.cand_cap, sph_counts=sim.hydro.counts,
+               forcetest=forcetest_steps(ft) if mesh.rank == 0 else [])
+    pg, sg = sim.gather_ordered()
+    if mesh.rank == 0:
+        out["gates"] = gas_state_gates(sim.cfg, pg, sg)
+        out["finite"] = out["finite"] and all(
+            bool(torch.isfinite(getattr(sg, k)).all()) for k in vars(sg))
+    if job.get("repeat"):
+        again = gas_dist_sim(mesh, job, log_dir + "_again")
+        again.step()
+        qg, qs = again.gather_ordered()
+        a, b = kept["first"]
+        out["repeat"] = all(torch.equal(getattr(x, k), getattr(y, k))
+                            for x, y in ((a, qg), (b, qs)) for k in vars(x))
+        again.close()
+    if job.get("files"):
+        base = sim.write_snapshot_now(os.path.join(log_dir, "dist_snap"))
+        if mesh.rank == 0:
+            snap = read_snapshot_set(base)
+            o = np.argsort(snap.pid.astype(np.int64))
+            n_gas = int(snap.header.npart[0])
+            og = np.argsort(snap.pid[:n_gas].astype(np.int64))
+            out["snapshot_equal"] = bool(
+                np.array_equal(snap.pos[o], pg.pos.numpy())
+                and np.array_equal(snap.pid[o].astype(np.int64),
+                                   pg.pid.numpy().astype(np.int64))
+                and np.array_equal(snap.rho[og], sg.density[:n_gas].numpy())
+                and np.array_equal(snap.hsml[og], sg.hsml[:n_gas].numpy())
+                and bool(np.isfinite(snap.u).all() and (snap.u > 0).all()))
+        path = sim.save_restart(os.path.join(log_dir, "restart_dist.npz"))
+        again = gas_dist_sim(mesh, job, log_dir + "_resumed", convert=False)
+        again.resume(path)
+        qg, qs = again.gather_ordered()
+        out["restart_equal"] = all(
+            torch.equal(getattr(x, k), getattr(y, k))
+            for x, y in ((pg, qg), (sg, qs)) for k in vars(x)) and (
+            again.ti_current, again.pm_ti_begstep, again.pm_ti_endstep) == (
+            sim.ti_current, sim.pm_ti_begstep, sim.pm_ti_endstep)
+        again.close()
+    sim.close()
+    return out
+
+
+def distributed_gas_paths(card: str):
+    """Phase 12: slice 3's gas box on 1 rank over NCCL and 2 ranks over
+    gloo sharing the card, replicated and LET, through
+    `DistributedSimulation`; one 2-step `--devices 2` gas run through the
+    command line.  Returns each configuration's numbers by rank."""
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_dist_gas")
+    os.makedirs(run_dir, exist_ok=True)
+    param = write_gas_box(run_dir)
+    single = SINGLE["gas"]
+    common = dict(kind="gas", param=param, h0=single["h0"],
+                  first=single["first"])
+    results = {}
+    for world, backend in DIST_LAUNCHES:
+        jobs = [dict(common, name=f"gas_rep_{world}", let=False,
+                     repeat=world == 2),
+                dict(common, name=f"gas_let_{world}", let=True,
+                     files=world == 2)]
+        ranks, _ = dist_launch(world, backend, jobs, run_dir,
+                               f"launch_{world}")
+        stamp(f"phase 12, {world} rank(s) over {backend}")
+        for job in jobs:
+            per = [r[job["name"]] for r in ranks]
+            results[job["name"]] = per
+            report_gas_job(job, per, world, backend, card)
+    # one gas run through the command line: the scheme at 2 x CLI_NSIDE^3
+    # (a parameterfile cannot ask for PMGRID: a periodic pure-tree box), 2
+    # steps, a snapshot after the first
+    small = write_gas_box(run_dir, ns=CLI_NSIDE, name="cli_gas_box")
+    short = rewrite_param(small, os.path.join(run_dir, "cli.param"),
+                          TimeMax=0.1 * (1 + 1e-6), TimeBetSnapshot=0.5,
+                          TimeOfFirstSnapshot=0.1,
+                          OutputDir=os.path.join(run_dir, "cli"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "ngravs_tpu_torch.run", short,
+                        "--devices", "2", "--backend", "gloo", "--device",
+                        DIST_DEVICE], cwd=ROOT, capture_output=True,
+                       text=True, timeout=600)
+    lines = r.stdout.strip().splitlines()
+    print(f"gas --devices 2 --backend gloo [{card}]: exit {r.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s; " + " | ".join(lines[-3:]),
+          flush=True)
+    if r.returncode != 0 or "over gloo" not in lines[0] \
+            or not lines[-1].startswith("done: 2 steps"):
+        raise AssertionError("the gas --devices 2 run failed:\n"
+                             + r.stdout[-1000:] + r.stderr[-3000:])
+    from ngravs_tpu_torch.io.gadget_format import read_snapshot_set
+    snap = read_snapshot_set(os.path.join(run_dir, "cli", "snapshot_000"))
+    if not (snap.u is not None and np.isfinite(snap.u).all()
+            and int(snap.header.npart[0]) == CLI_NSIDE ** 3):
+        raise AssertionError("the gas --devices 2 run's snapshot has no "
+                             "gas blocks")
+    stamp("phase 12, the gas --devices 2 command line")
+    return results
+
+
+def report_gas_job(job: dict, per, world: int, backend: str, card: str):
+    """Print one gas configuration's numbers and hold them to phase 12's
+    gates."""
+    name = job["name"]
+    r0 = per[0]
+    single = SINGLE["gas"]
+    rate = r0["updates"] / max(r["wall"] for r in per)
+    print(f"{name} [{card}]: {world} rank(s) over {backend}, "
+          f"{'LET' if job['let'] else 'replicated'}: {r0['updates']} "
+          f"particle-steps = {rate:.1f} particle-steps/s (single-device gas "
+          f"path {single['rate']:.1f}); set-up with the u -> entropy pass "
+          f"{r0['setup']:.1f} s; sync points {r0['syncs']}; K1 launches by "
+          f"rank {[r['counts'] for r in per]}; last step: host syncs by "
+          f"rank {[r['host_syncs'] for r in per]}, collective bytes sent by "
+          f"rank {[r['bytes'] for r in per]} in {r0['calls']} calls, SPH "
+          f"passes {[round(r['sph_s'], 3) for r in per]} s by rank, "
+          f"density iterations by rank "
+          f"{[r['last_counts'].get('density_iters') for r in per]}"
+          + (f", ghost rows received (rounds A, B) by rank "
+             f"{[r['ghost_rows'] for r in per]}, LET gravity rows by rank "
+             f"{[r['let_rows'] for r in per]}" if job["let"] else "")
+          + f"; the run: SPH passes {r0['sph_counts']}, cand_cap "
+          f"{[r['cand_cap'] for r in per]}, ghost-cap growths and margin "
+          f"reruns {r0['ghost_retries']}, LET cap retries "
+          f"{r0['cap_retries']}", flush=True)
+    for r in per:
+        if sum(v for k, v in r["counts"].items()
+               if k.startswith("K1bcd")) <= 0:
+            raise AssertionError(f"{name}: a rank never launched K1bcd: "
+                                 f"{r['counts']}")
+        if not r["finite"]:
+            raise AssertionError(f"{name}: non-finite state")
+    if len(set(map(tuple, (r["timeline"] for r in per)))) != 1:
+        raise AssertionError(f"{name}: the ranks' timelines differ")
+    check_forcetest(name, os.path.join(ROOT, "build", "chip_smoke_dist_gas",
+                                       name, "forcetest.txt"),
+                    card, RMS_TREEPM, 1, DIST_GAS_STEPS)
+    want = single["syncs"][DIST_GAS_STEPS - 1]
+    f, g = r0["first"], r0["gates"]
+    print(f"{name} against the single device [{card}]: timeline "
+          f"{r0['timeline']} (single {want}); first step: density "
+          f"{f['density']:.3e}, Hsml {f['hsml']:.3e} (max relative), hydro "
+          f"{f['hydro']:.3e} of max|a|, gravity rms {f['gravity_rms']:.3e}; "
+          f"gas state: neighbours in the window for {g['in_window']:.5%}, "
+          f"median density / mean {g['rho_med']:.5f}, hydro momentum rate "
+          f"{', '.join(f'{m:.2e}' for m in g['momentum'])}"
+          + (f"; two runs' first steps bit-identical {r0['repeat']}"
+             if "repeat" in r0 else "")
+          + (f"; multi-file snapshot equal {r0['snapshot_equal']}, restart "
+             f"round trip bit for bit {r0['restart_equal']}"
+             if "snapshot_equal" in r0 else ""), flush=True)
+    if r0["timeline"] != want:
+        raise AssertionError(f"{name}: timeline {r0['timeline']} against "
+                             f"the single device's {want}")
+    if not (f["density"] < 2e-3 and f["hsml"] < 2e-3 and f["hydro"] < 3e-3
+            and f["gravity_rms"] < RMS_DIST):
+        raise AssertionError(f"{name}: first step against the single "
+                             f"device {f}")
+    if not (g["in_window"] >= 0.999 and abs(g["rho_med"] - 1) < 0.05
+            and max(g["momentum"]) < MOMENTUM_RATE):
+        raise AssertionError(f"{name}: gas-state gates {g}")
+    if r0.get("repeat") is False:
+        raise AssertionError(f"{name}: two runs differ")
+    if "snapshot_equal" in r0 and not (r0["snapshot_equal"]
+                                       and all(r["restart_equal"]
+                                               for r in per)):
+        raise AssertionError(f"{name}: snapshot or restart round trip")
+
+
+# --------------------------------------------------------------------------
 
 def kernel_entry(name: str, launches: int, nums: dict, errs) -> dict:
     return {"name": name, "route": "cuda",
@@ -2622,16 +2940,20 @@ def kernel_entry(name: str, launches: int, nums: dict, errs) -> dict:
             "library_ms": None, "plan": nums["plan"]}
 
 
-DIST_KINDS = {"open_rep": "60k open box, replicated step",
-              "open_let": "60k open box, LET step's local tree",
-              "box_rep": "2 x 64^3 TreePM box, replicated step",
-              "box_let": "2 x 64^3 TreePM box, LET step's local tree"}
+DIST_KINDS = {"open_rep": (11, "60k open box, replicated step"),
+              "open_let": (11, "60k open box, LET step's local tree"),
+              "box_rep": (11, "2 x 64^3 TreePM box, replicated step"),
+              "box_let": (11, "2 x 64^3 TreePM box, LET step's local tree"),
+              "gas_rep": (12, "2 x 64^3 TreePM + SPH gas box, replicated "
+                              "full step"),
+              "gas_let": (12, "2 x 64^3 TreePM + SPH gas box, LET full "
+                              "step's local tree")}
 
 
 def dist_entries(results) -> list:
-    """Phase 11's K1 entries, one per instance, IC and step: the launches
-    of every rank of its 1- and 2-rank runs, and the numbers of rank 0's
-    check on the larger of the two runs' largest launches."""
+    """Phases 11's and 12's K1 entries, one per instance, IC and step: the
+    launches of every rank of its 1- and 2-rank runs, and the numbers of
+    rank 0's check on the larger of the two runs' largest launches."""
     groups = {}
     for job, per in results.items():
         kind = job.rsplit("_", 1)[0]
@@ -2647,20 +2969,32 @@ def dist_entries(results) -> list:
                 g["nums"] = nums
     entries = []
     for (name, kind), g in sorted(groups.items()):
+        phase, what = DIST_KINDS[kind]
         if g["nums"] is None:
-            raise AssertionError(f"phase 11: {name} ({kind}) launched on a "
-                                 "rank but never checked on rank 0")
+            raise AssertionError(f"phase {phase}: {name} ({kind}) launched "
+                                 "on a rank but never checked on rank 0")
         entries.append(kernel_entry(
-            f"{name} (phase 11, {DIST_KINDS[kind]}, 1 rank over NCCL + 2 "
-            "ranks over gloo)", g["launches"], g["nums"], g["errs"]))
+            f"{name} (phase {phase}, {what}, 1 rank over NCCL + 2 ranks "
+            "over gloo)", g["launches"], g["nums"], g["errs"]))
     return entries
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    """All phases; `--phases 3,6,12` runs those alone (phase 12 needs 6)
+    for a quicker look, its kernels line then of those phases only."""
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 1
+    only = None
+    if argv[:1] == ["--phases"] and len(argv) == 2:
+        only = {int(x) for x in argv[1].split(",")}
+    elif argv:
+        print("usage: python3 chip_smoke.py [--phases N,N,...]",
+              file=sys.stderr)
+        return 2
+    want = lambda k: only is None or k in only
     from ngravs_tpu_torch.ops import lattice, pairwise
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2678,65 +3012,83 @@ def main() -> int:
           f"{'native' if native else 'numpy (no host compiler)'} "
           f"{time.perf_counter() - t1:.1f} s", flush=True)
 
-    # phase 3: every instance on synthetic walk-shaped inputs
-    synthetic = {"K1a": check_kernel("kernel (synthetic)",
-                                     *kernel_inputs(dev), (False, True))}
-    for i, case in enumerate(K1_CASES):
-        w, kw = case_wiring(case)
-        inputs = kernel_inputs(dev, seed=10 + i, n_gravs=w.n_gravs,
-                               box=kw["box_size"], count=kw["accumulator"])
-        synthetic[case] = check_kernel(f"kernel (synthetic, {case})",
-                                       *inputs, (False, True), kw)
-
-    stamp("build and synthetic K1 instances")
+    entries = []
+    path_counts = {}
+    synthetic = {}
+    launches1 = 0
+    if want(3):
+        # phase 3: every instance on synthetic walk-shaped inputs
+        synthetic["K1a"] = check_kernel("kernel (synthetic)",
+                                        *kernel_inputs(dev), (False, True))
+        for i, case in enumerate(K1_CASES):
+            w, kw = case_wiring(case)
+            inputs = kernel_inputs(dev, seed=10 + i, n_gravs=w.n_gravs,
+                                   box=kw["box_size"],
+                                   count=kw["accumulator"])
+            synthetic[case] = check_kernel(f"kernel (synthetic, {case})",
+                                           *inputs, (False, True), kw)
+        stamp("build and synthetic K1 instances")
     # phases 4-8: the five paths, each with its counts from 0
-    launches1, launched = galaxy_path(dev, card)
-    galaxy_batch = check_largest_launch("kernel (main-path batch)", launched)
-    stamp("slice 1")
-    launches2, launched = box_path(dev, card)
-    box_batch = check_largest_launch("kernel (box-path batch)", launched)
-    stamp("slice 2 (box path, reproducibility)")
-    launches3, launched = gas_path(dev, card)
-    gas_batch = check_largest_launch("kernel (gas-path batch)", launched)
-    stamp("slice 3 (gas)")
-    launches4, launched, ewald_err = ewald_path(dev, card)
-    ewald_batch = check_largest_launch("kernel (Ewald-path batch)", launched)
-    del launched
-    stamp("slice 4a (Ewald)")
-    tabulated_path(dev, card)
-    stamp("slice 4b (tabulated TreePM)")
-    segment_paths(dev, card)
-    launches5, launched = glass_path(dev, card)
-    glass_batch = check_largest_launch("kernel (glass-path batch)", launched)
-    del launched
-    stamp("phase 10a (glass)")
-    special_mode_runs(dev, card)
-    stamp("phase 10b (FLEXSTEPS, PSEUDOSYMMETRIC)")
-    sheet_path(dev, card)
-    stamp("phase 10c (TWODIMS, LONG_X)")
-    dist = distributed_paths(card)
-
-    entries = [kernel_entry("K1a (slice 1 path, open box, one Newton law)",
-                            launches1, galaxy_batch,
-                            [galaxy_batch["max_abs_err"]]
-                            + [r["max_abs_err"]
-                               for r in synthetic["K1a"].values()]),
-               kernel_entry(f"{box_batch['name']} (box path, newton_yukawa "
-                            "periodic TreePM)", launches2, box_batch,
-                            [box_batch["max_abs_err"]]),
-               kernel_entry(f"{gas_batch['name']} (gas path, newton_yukawa "
-                            "periodic TreePM + SPH)", launches3, gas_batch,
-                            [gas_batch["max_abs_err"]]),
-               kernel_entry(f"{ewald_batch['name']} (slice 4a path, "
-                            "newton_yukawa periodic pure tree, beside the "
-                            "lattice pass)", launches4, ewald_batch,
-                            [ewald_batch["max_abs_err"], ewald_err]),
-               kernel_entry(f"{glass_batch['name']} (glass path, one Newton "
-                            "law periodic TreePM)", launches5, glass_batch,
-                            [glass_batch["max_abs_err"]])]
+    if want(4):
+        launches1, launched = galaxy_path(dev, card)
+        batch = check_largest_launch("kernel (main-path batch)", launched)
+        entries.append(kernel_entry(
+            "K1a (slice 1 path, open box, one Newton law)", launches1, batch,
+            [batch["max_abs_err"]] + [r["max_abs_err"] for r in
+                                      synthetic.get("K1a", {}).values()]))
+        stamp("slice 1")
+    if want(5):
+        launches2, launched = box_path(dev, card)
+        batch = check_largest_launch("kernel (box-path batch)", launched)
+        entries.append(kernel_entry(
+            f"{batch['name']} (box path, newton_yukawa periodic TreePM)",
+            launches2, batch, [batch["max_abs_err"]]))
+        path_counts[batch["name"]] = path_counts.get(batch["name"], 0) \
+            + launches2
+        stamp("slice 2 (box path, reproducibility)")
+    if want(6):
+        launches3, launched = gas_path(dev, card)
+        batch = check_largest_launch("kernel (gas-path batch)", launched)
+        entries.append(kernel_entry(
+            f"{batch['name']} (gas path, newton_yukawa periodic TreePM + "
+            "SPH)", launches3, batch, [batch["max_abs_err"]]))
+        path_counts[batch["name"]] = path_counts.get(batch["name"], 0) \
+            + launches3
+        stamp("slice 3 (gas)")
+    if want(7):
+        launches4, launched, ewald_err = ewald_path(dev, card)
+        batch = check_largest_launch("kernel (Ewald-path batch)", launched)
+        del launched
+        entries.append(kernel_entry(
+            f"{batch['name']} (slice 4a path, newton_yukawa periodic pure "
+            "tree, beside the lattice pass)", launches4, batch,
+            [batch["max_abs_err"], ewald_err]))
+        stamp("slice 4a (Ewald)")
+    if want(8):
+        tabulated_path(dev, card)
+        stamp("slice 4b (tabulated TreePM)")
+    if want(9):
+        segment_paths(dev, card)
+    if want(10):
+        launches5, launched = glass_path(dev, card)
+        batch = check_largest_launch("kernel (glass-path batch)", launched)
+        del launched
+        entries.append(kernel_entry(
+            f"{batch['name']} (glass path, one Newton law periodic TreePM)",
+            launches5, batch, [batch["max_abs_err"]]))
+        path_counts[batch["name"]] = path_counts.get(batch["name"], 0) \
+            + launches5
+        stamp("phase 10a (glass)")
+        special_mode_runs(dev, card)
+        stamp("phase 10b (FLEXSTEPS, PSEUDOSYMMETRIC)")
+        sheet_path(dev, card)
+        stamp("phase 10c (TWODIMS, LONG_X)")
+    dist = {}
+    if want(11):
+        dist.update(distributed_paths(card))
+    if want(12):
+        dist.update(distributed_gas_paths(card))
     entries += dist_entries(dist)
-    path_counts = {box_batch["name"]: launches2 + launches3,
-                   glass_batch["name"]: launches5}
     for case, rep in synthetic.items():
         for want_pot, r in rep.items():
             entries.append(kernel_entry(

@@ -10,8 +10,8 @@ ICs are a jittered lattice with masses matching Omega0 (check_omega,
 init.c:181-208), as in examples/cosmological_box.py; for production runs
 feed real ICs via `python -m ngravs_tpu_torch.run <paramfile>`.  The run
 is on the CUDA card unless `--device cpu` asks for the CPU.  `--devices K`
-asks for K ranks; multi-device runs with gas are not ported yet (ROADMAP
-Queue 1 item 18b), so that raises.
+runs K ranks (`parallel.runner.DistributedSimulation`, the replicated
+full step; the gas u becomes entropy before the first step).
 """
 
 import argparse
@@ -71,9 +71,20 @@ def build(args):
 
 
 def _rank(mesh, args):
+    """One rank of a --devices K run."""
     from ngravs_tpu_torch.parallel.runner import DistributedSimulation
     cfg, p, sph = build(args)
-    DistributedSimulation(cfg, p, sph=sph, mesh=mesh)
+    sim = DistributedSimulation(cfg, p, sph=sph, mesh=mesh,
+                                entropy_is_u=True)
+    t0 = time.time()
+    sim.run(max_steps=args.steps or None)
+    dt = time.time() - t0
+    if mesh.rank == 0:
+        print(f"done: a={sim.time:.4f} steps={sim.step_count} "
+              f"ranks={mesh.size} "
+              f"({sim.num_force_updates / max(dt, 1e-9):.0f} "
+              "particle-steps/s)")
+    sim.close()
 
 
 def main():

@@ -144,9 +144,12 @@ def load_initial_conditions(cfg, units, ic_path=None, device="cpu"):
     """read_ic (read_ic.c:31-146): load ICs into (Particles, SphState or
     None), with InitGasTemp defaulting and the entropy floor.  The SPH
     entropy field holds the IC internal energy u; the runner converts
-    u -> A at the first force computation (init.c:170-174)."""
-    snap = read_snapshot(ic_path or cfg.init_cond_file,
-                         expect_format=cfg.ic_format or None)
+    u -> A at the first force computation (init.c:170-174).  A path that
+    names no file is read as a multi-file set (`base.0`, `base.1`, ...)."""
+    from ..io.gadget_format import read_snapshot_set
+    path = ic_path or cfg.init_cond_file
+    snap = read_snapshot(path, expect_format=cfg.ic_format or None) \
+        if os.path.isfile(path) else read_snapshot_set(path)
     vel = snap.vel
     if cfg.comoving_integration:
         # comoving velocity variable: internal vel = file vel * a^(3/2)

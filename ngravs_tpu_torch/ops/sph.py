@@ -474,6 +474,10 @@ class HydroSolver:
             cfg.softening[0] * 2.8  # MinGasHsml (gravtree.c:517)
         self.group = cfg.tree_group_size // 4 or 64
         self.cand_cap = 4096
+        self.frontier_cap = 2048
+        # blocks kept within one cell of up to this level of the root
+        # (None: the active gas blocked as it comes in sorted order)
+        self.split_level = None
         self.counts = dict(density_iters=0, hydro_passes=0, cap_growths=0)
         # TWODIMS: 2D-normalized kernel, column density / boxSize_Z
         # (allvars.h:117-125, density.c:492-496)
@@ -483,26 +487,74 @@ class HydroSolver:
     def _gather(self, depth: int, pairs: bool):
         return make_sph_gather(
             depth=depth, bucket=self.cfg.tree_bucket_size,
-            cand_cap=self.cand_cap, box_size=self.cfg.box_sizes,
-            group_size=self.group, pairs=pairs)
+            cand_cap=self.cand_cap, frontier_cap=self.frontier_cap,
+            box_size=self.cfg.box_sizes, group_size=self.group, pairs=pairs)
 
     def _grow_cap(self, cands: SphCandidates):
-        self.cand_cap = max(self.cand_cap * 2,
-                            _bucket(int(cands.max_cand) * 5 // 4))
+        """The candidate cap, or, when the candidates fit and the walk's
+        frontier overflowed (a block spread over a jump of the Morton
+        curve), the frontier cap."""
+        if int(cands.max_cand) <= self.cand_cap:
+            self.frontier_cap *= 2
+        else:
+            self.cand_cap = max(self.cand_cap * 2,
+                                _bucket(int(cands.max_cand) * 5 // 4))
         self.counts["cap_growths"] += 1
 
-    def _blocks(self, tree: Octree, p, ti_current, n_gas_active_max):
-        """Active-gas targets in sorted order, blocked [nb, G]."""
+    def _blocks(self, tree: Octree, p, ti_current, n_gas_active_max,
+                mask=None):
+        """Active-gas targets in sorted order, blocked [nb, G]; `mask`
+        ([N] bool in the tree's sorted order) keeps a subset of them."""
         mask_s = (p.ti_endstep == ti_current)[tree.order.long()] \
             & (tree.hsml_s > 0)
+        if mask is not None:
+            mask_s = mask_s & mask
+        if self.split_level is not None:
+            return self._split_blocks(
+                tree, torch.nonzero(mask_s).squeeze(1).to(torch.int32))
         size = _bucket(n_gas_active_max, self.group)
         tgt = torch.nonzero(mask_s).squeeze(1).to(torch.int32)[:size]
         size += (-size) % self.group
         tgt = torch.cat([tgt, tgt.new_full((size - tgt.shape[0],), -1)])
         return tgt.reshape(-1, self.group)
 
-    def _targets(self, tree, p, ti_current, n_active):
-        tgt = self._blocks(tree, p, ti_current, n_active)
+    def split_level_for(self, n: int) -> int:
+        """The level `_split_blocks` keeps n targets' blocks within: the
+        deepest up to `split_level` whose cells hold 2 blocks or more on
+        average, so that the padding stays a small part."""
+        lvl = 0
+        while lvl < self.split_level \
+                and n >= 2 * self.group * 8 ** (lvl + 1):
+            lvl += 1
+        return lvl
+
+    def _split_blocks(self, tree: Octree, tgt):
+        """Sorted targets blocked so that no block straddles a cell of
+        level `split_level_for(n)` of the root: each run of targets in one
+        cell is padded to whole blocks.  A block across a jump of the
+        Morton curve would span the box, and its neighbour walk would
+        overflow the frontier (and grow the candidate cap for every
+        block)."""
+        g, n, dev = self.group, tgt.shape[0], tgt.device
+        if n == 0:
+            return tgt.new_full((1, g), -1)
+        cells = 1 << self.split_level_for(n)
+        c = torch.clamp(((tree.pos_s[tgt.long()] - tree.corner)
+                         / tree.root_len * cells).long(), 0, cells - 1)
+        new = torch.ones(n, dtype=torch.bool, device=dev)
+        new[1:] = torch.any(c[1:] != c[:-1], dim=1)
+        run = torch.cumsum(new, 0) - 1
+        starts = torch.nonzero(new).squeeze(1)
+        lens = torch.diff(starts, append=starts.new_tensor([n]))
+        padded = (lens + g - 1) // g * g
+        slot = (torch.cumsum(padded, 0) - padded)[run] \
+            + torch.arange(n, device=dev) - starts[run]
+        out = tgt.new_full((int(torch.sum(padded)),), -1)
+        out[slot] = tgt
+        return out.reshape(-1, g)
+
+    def _targets(self, tree, p, ti_current, n_active, mask=None):
+        tgt = self._blocks(tree, p, ti_current, n_active, mask)
         valid = tgt >= 0
         safe = torch.clamp(tgt, min=0).long()
         orig = torch.where(valid, tree.order.long()[safe], p.n)
@@ -510,15 +562,21 @@ class HydroSolver:
 
     # ------------------------------------------------------------------
     def density(self, tree: Octree, p, sph, ti_current, n_active, depth,
-                tbi: float):
+                tbi: float, mask=None, ghosts=None):
         """Smoothing-length iteration + density sums for active gas.
+
+        `mask` ([N] bool, sorted order) keeps a subset of the active gas
+        as targets, `n_active` bounding their count.  `ghosts(tgt, hsml,
+        active)` adds the sums over neighbours the tree does not hold
+        (a multi-device step's ghost rows): raw (rho, sum W, dhsml, div v,
+        rot v [3]) a target, each [nb, G], every iteration.
 
         Returns the updated SphState (hsml, density, divvel, curlvel,
         dhsml factor, num_ngb, pressure)."""
         cfg = self.cfg
         box = cfg.box_sizes
         tgt, active, safe, orig = self._targets(tree, p, ti_current,
-                                                n_active)
+                                                n_active, mask)
         order = tree.order.long()
         hsml = torch.where(active, sph.hsml[order][safe], 0.0)
         vel_pred_all = sph.vel_pred[order]
@@ -536,6 +594,14 @@ class HydroSolver:
                 rho, wngb, dhsml, divv, rotv = density_pass(
                     tree, tgt, hsml, vpt, cands, vel_pred_all, box_size=box,
                     kernel=self.kernel)
+                if ghosts is not None:
+                    grho, gwn, gdh, gdv, grv = ghosts(tgt, hsml, active)
+                    rho, dhsml = rho + grho, dhsml + gdh
+                    divv, rotv = divv + gdv, rotv + grv
+                    hinv3, _ = _hinv_pow(1.0 / torch.clamp(hsml, min=1e-30),
+                                         self.kernel)
+                    wngb = wngb + self.kernel.norm * gwn \
+                        / torch.clamp(hinv3, min=1e-37)
             self.counts["density_iters"] += 1
             new_hsml, left, right, conv = hsml_update(
                 hsml, left, right, wngb, dhsml, rho,
@@ -600,11 +666,15 @@ class HydroSolver:
         return fields, facs
 
     def hydro(self, tree: Octree, p, sph, ti_current, n_active, depth,
-              tbi: float, time_now: float):
-        """Hydro force pass for active gas (hydro_force, hydra.c:50)."""
+              tbi: float, time_now: float, mask=None, ghosts=None):
+        """Hydro force pass for active gas (hydro_force, hydra.c:50).
+        `mask` as for `density`; `ghosts(tgt, safe, fields, facs)` adds
+        the pair sums over ghost rows: (acc [nb, G, 3], dt_entropy,
+        max_signal_vel), the last two [nb, G], before the finalisation."""
         cfg = self.cfg
         gm1 = cfg.gamma_minus1
-        tgt, valid, safe, orig = self._targets(tree, p, ti_current, n_active)
+        tgt, valid, safe, orig = self._targets(tree, p, ti_current, n_active,
+                                               mask)
         fields, (fac_mu, fac_vsic_fix, hubble_a2) = self.hydro_inputs(
             tree, p, sph, tbi, time_now)
         hsml_all, rho_all = fields[0], fields[1]
@@ -618,6 +688,11 @@ class HydroSolver:
                 tree, tgt, cands, *fields, fac_mu, fac_vsic_fix, hubble_a2,
                 cfg.art_bulk_visc_const, box_size=cfg.box_sizes,
                 use_limiter=not cfg.no_viscosity_limiter, kernel=self.kernel)
+            if ghosts is not None:
+                gacc, gde, gms = ghosts(tgt, safe, fields,
+                                        (fac_mu, fac_vsic_fix, hubble_a2))
+                acc, dtent = acc + gacc, dtent + gde
+                maxsig = torch.maximum(maxsig, gms)
         self.counts["hydro_passes"] += 1
         # finalize (hydra.c:317-320) with the COMOVING density; under
         # IsothermEqs gamma-1 = 0 and DtEntropy stays 0

@@ -328,8 +328,10 @@ def sharded_dt_displacement(cfg, units, p, atime, mesh: Mesh) -> float:
 
 def make_mode_kick(cfg, units, tables, soft_table, mesh: Mesh):
     """The kick of a step, honouring the reference's special timestep
-    modes.  Returns (kick_fn(p, ti_next, dt_disp, time_next, extras) -> p,
-    the number of extra inputs a step takes):
+    modes.  Returns (kick_fn(p, sph, ti_next, dt_disp, time_next, extras)
+    -> (p, sph), the number of extra inputs a step takes).  With gas (`sph`
+    not None) the kick is also the hydro kick, the entropy update with the
+    MinGasTemp floor and the Courant criterion (`kdk.kick`):
 
       * SYNCHRONIZATION (default) — `kdk.kick`, no extras
       * FLEXSTEPS (timestep.c:196) — extras (present_min_step,
@@ -339,7 +341,8 @@ def make_mode_kick(cfg, units, tables, soft_table, mesh: Mesh):
         a fresh table a step from the runner
       * MAKEGLASS (timestep.c:85-133) — no extras; the reversed-gravity
         displacement with the global largest-displacement clamp (pmax),
-        then a MaxSizeTimestep advance of the active set
+        then a MaxSizeTimestep advance of the active set; the gas state
+        is returned unchanged
     """
     dev = mesh.device
     tbi = timebase_interval(cfg)
@@ -359,7 +362,7 @@ def make_mode_kick(cfg, units, tables, soft_table, mesh: Mesh):
         return cosmo_factors(cfg, units, time_next, dev) \
             if cfg.comoving_integration else None
 
-    def kick_fn(p, ti_next, dt_disp, time_next, extras):
+    def kick_fn(p, sph, ti_next, dt_disp, time_next, extras):
         if cfg.make_glass:
             acc = -(p.accel + p.accel_pm)
             disp_fac = 2.0 / (3 * units.hubble ** 2)
@@ -385,7 +388,7 @@ def make_mode_kick(cfg, units, tables, soft_table, mesh: Mesh):
                 accel_pm=torch.zeros_like(p.accel_pm),
                 ti_begstep=torch.where(act, p.ti_endstep, p.ti_begstep),
                 ti_endstep=torch.where(act, p.ti_endstep + glass_ticks,
-                                       p.ti_endstep))
+                                       p.ti_endstep)), sph
         variant = {}
         if cfg.flexsteps:
             pmin_step, pmax_step = extras
@@ -393,9 +396,9 @@ def make_mode_kick(cfg, units, tables, soft_table, mesh: Mesh):
                                int(pmin_step), int(pmax_step))
         elif cfg.pseudosymmetric:
             variant["rnd_table"] = extras[0]
-        p, _ = kick(cfg, p, tables, ti_next, dt_disp, soft_table,
-                    cf_at(time_next), **variant)
-        return p
+        return kick(cfg, p, tables, ti_next, dt_disp, soft_table,
+                    cf_at(time_next), sph=sph,
+                    min_egy_spec=units.min_egy_spec, **variant)
 
     return kick_fn, n_extras
 

@@ -1,6 +1,6 @@
 """The multi-device main loop: the reference's run() (run.c:20-132) over
-the ranks' tree or TreePM step (port of `ngravs_tpu/parallel/runner.py`,
-collisionless).
+the ranks' tree or TreePM step, with or without SPH gas (port of
+`ngravs_tpu/parallel/runner.py`).
 
 Every rank runs this run loop on its shard; the host holds the integer
 timeline and the counters, which every rank computes alike from the
@@ -9,8 +9,10 @@ step's reductions.  Host duties as in the reference's serial bookkeeping:
   * the sync point, drifting exactly onto snapshot times
     (find_next_sync_point_and_drift, run.c:151-236), a PM step forcing a
     full synchronisation (run.c:175-181);
-  * the LET exchange's caps, shared by the step variants, grown where a
-    rank overflows them (allocate.c:44-76);
+  * the LET exchange's caps and the SPH ghost cap and margin, shared by
+    the step variants, grown where a rank overflows them
+    (allocate.c:44-76); the SPH candidate cap, grown by the rank that
+    overflows it;
   * the work-weighted domain decomposition every
     TreeDomainUpdateFrequency * N * K force updates (domain.c:76), by the
     measured interaction counts;
@@ -19,8 +21,12 @@ step's reductions.  Host duties as in the reference's serial bookkeeping:
     writes them), the stop file and the CPU-time limit (rank 0 decides,
     every rank follows).
 
-Runs with gas raise: the SPH half of the JAX package's multi-device path
-is ROADMAP Queue 1 item 18b.
+With gas the steps are the full steps (`full_sharded.ReplicatedFullStep`,
+`full_let_sharded.LetFullStep`) and the gas state is sharded with its
+particles.  An IC whose entropy field holds the internal energy u
+(`entropy_is_u`) is converted as JAX's runner converts it: the densities
+of a density pass at tick 0 give A = (gamma - 1) u / rho^(gamma - 1)
+(init.c:170-174), before the first step.
 """
 
 from __future__ import annotations
@@ -40,14 +46,14 @@ from ..integrate.timeline import (pow2_floor, ti_to_time, time_to_ti,
                                   timebase_interval)
 from ..models.wiring import build_wiring
 from ..ops.solver import GravitySolver
-from ..particles import Particles
+from ..ops.sph import HydroSolver
+from ..particles import Particles, SphState
 from ..units import set_units
+from .full_let_sharded import GHOST_CAP, GHOST_MARGIN, LetFullStep
+from .full_sharded import ReplicatedFullStep
 from .mesh import Mesh, gather_rows, sharded_dt_displacement, take_rows
 from .tree_sharded import (LetTreeStep, ReplicatedTreeStep, decompose,
                            reshard_by_cost)
-
-GAS_REFUSAL = ("multi-device runs with SPH gas are not yet ported to "
-               "ngravs_tpu_torch (ROADMAP Queue 1 item 18b)")
 
 
 def _shared_scratch(mesh: Mesh) -> str:
@@ -60,18 +66,19 @@ def _shared_scratch(mesh: Mesh) -> str:
 class DistributedSimulation:
     """The multi-device simulation on one rank of `mesh`.
 
-    Every rank passes the same global `particles` (type-sorted, as read
-    from the ICs); the constructor keeps this rank's block of the initial
-    count-balanced decomposition.  `use_let` picks the locally-essential
-    tree step over the replicated one.  `log_dir=""` runs headless; None
-    uses cfg.output_dir."""
+    Every rank passes the same global `particles` (type-sorted, gas first,
+    as read from the ICs) and gas state `sph` (rows as `particles`; its
+    entropy field holds the entropy A unless `entropy_is_u`); the
+    constructor keeps this rank's block of the initial count-balanced
+    decomposition.  `use_let` picks the locally-essential tree step over
+    the replicated one.  `log_dir=""` runs headless; None uses
+    cfg.output_dir."""
 
     def __init__(self, cfg, particles, sph=None, *, mesh: Mesh,
                  log_dir=None, alloc_factor: float = 1.25,
-                 use_let: bool = False):
-        n_gas = int(torch.sum(particles.ptype == 0))
-        if sph is not None and n_gas > 0:
-            raise NotImplementedError(GAS_REFUSAL)
+                 use_let: bool = False, entropy_is_u: bool = False):
+        self.n_gas = int(torch.sum(particles.ptype == 0))
+        self.has_gas = sph is not None and self.n_gas > 0
         self.cfg = cfg
         self.mesh = mesh
         self.n_dev = mesh.size
@@ -82,7 +89,10 @@ class DistributedSimulation:
         self.tables = make_tables(cfg, self.units)
         self.tbi = timebase_interval(cfg)
         self.alloc_factor = alloc_factor
-        self.let_caps = dict(expn=4096, expp=8192)
+        # the LET exchange's caps (JAX's first expn_cap / expp_cap) and the
+        # SPH ghost cap and margin, shared by the step variants
+        self.let_caps = dict(expn=4096, expp=8192, ghost=GHOST_CAP,
+                             margin=GHOST_MARGIN)
         self.force_soft = np.array(cfg.softening, np.float32) \
             * C.SOFTFAC_SPLINE
         self.solver = GravitySolver(cfg, self.wiring, self.force_soft,
@@ -94,10 +104,16 @@ class DistributedSimulation:
         self._pid_sorted = np.sort(pid)
         self._pid_rank = np.argsort(pid)
 
+        self.hydro = HydroSolver(cfg, self.units) if self.has_gas else None
         # the initial decomposition (no costs yet: count-balanced), on the
         # particles' bounding cube as the JAX runner makes it
         host = Particles(**{k: v.cpu() for k, v in vars(particles).items()})
-        self.p = decompose(host, mesh, alloc_factor=alloc_factor)
+        self.sph = None
+        if self.has_gas:
+            self.p, self.sph = decompose(host, mesh, alloc_factor=alloc_factor,
+                                         sph=self._initial_hsml(host, sph))
+        else:
+            self.p = decompose(host, mesh, alloc_factor=alloc_factor)
         self._build_step()
 
         self.ti_current = 0
@@ -111,6 +127,7 @@ class DistributedSimulation:
         self._since_reshard = 0
         self._wall_start = _time.time()
         self.let_rows = None     # LET rows received last step (a tensor)
+        self.ghost_rows = None   # SPH ghost rows received, rounds A and B
 
         # log_dir="" runs headless; None with no OutputDir: a scratch
         # directory (rank 0's, shared)
@@ -138,6 +155,44 @@ class DistributedSimulation:
         if cfg.flexsteps:
             self.present_min_step = C.TIMEBASE
             self.present_max_step = C.TIMEBASE
+        if entropy_is_u and self.has_gas:
+            self.convert_u_to_entropy()
+
+    def _initial_hsml(self, p, sph):
+        """The gas state on the host with the first smoothing-length guess
+        where it has none, as JAX's runner makes it: the mean gas spacing
+        times DesNumNgb^(1/3) over the box, else over the extent of all
+        coordinates (setup_smoothinglengths, init.c:218)."""
+        cfg = self.cfg
+        sph = SphState(**{k: v.cpu() for k, v in vars(sph).items()})
+        if float(torch.amax(sph.hsml)) > 0:
+            return sph
+        if cfg.periodic and cfg.box_size > 0:
+            h0 = cfg.box_size * (cfg.des_num_ngb / self.n_gas) ** (1 / 3)
+        else:
+            ext = float(torch.amax(p.pos) - torch.amin(p.pos))
+            h0 = ext * (cfg.des_num_ngb / max(self.n_gas, 1)) ** (1 / 3)
+        return sph.replace(hsml=torch.where(p.ptype == 0,
+                                            float(np.float32(h0)), 0.0))
+
+    def convert_u_to_entropy(self):
+        """init.c:170-174: the IC's internal energy u -> entropy A with the
+        densities of a density pass at tick 0 (JAX's runner takes them from
+        a throwaway step; the pass is that step's density half, which
+        depends on nothing the rest of the step computes).  The converged
+        smoothing lengths and densities are kept; positions and velocities
+        are untouched.  Under IsothermEqs the entropy variable stays u."""
+        cfg = self.cfg
+        s0 = self.sph
+        s_tmp = self._step_fn.density_only(self.p, s0, self.ti_current)
+        gas = (self.p.ptype == 0) & (self.p.pid >= 0)
+        a3inv = 1.0 / cfg.time_begin ** 3 if cfg.comoving_integration \
+            else 1.0
+        rho = torch.clamp(s_tmp.density, min=1e-37)
+        ent = s0.entropy if cfg.isotherm_eqs else \
+            cfg.gamma_minus1 * s0.entropy / (rho * a3inv) ** cfg.gamma_minus1
+        self.sph = s0.replace(entropy=torch.where(gas, ent, s0.entropy),
+                              hsml=s_tmp.hsml, density=s_tmp.density)
 
     # ------------------------------------------------------------------
     def _build_step(self):
@@ -147,24 +202,43 @@ class DistributedSimulation:
         accel.c:34-42)."""
         cfg = self.cfg
         fns = []
+        gas = dict(hydro=self.hydro) if self.has_gas else {}
         for pm in ((True, False) if cfg.pmgrid else (False,)):
             kit = (cfg, self.units, self.wiring, self.tables, self.mesh)
             if self.use_let:
-                fns.append(LetTreeStep(*kit, pm_step=pm, solver=self.solver,
-                                       caps=self.let_caps))
+                make = LetFullStep if self.has_gas else LetTreeStep
+                fns.append(make(*kit, pm_step=pm, solver=self.solver,
+                                caps=self.let_caps, **gas))
             else:
-                fns.append(ReplicatedTreeStep(*kit, pm_step=pm,
-                                              solver=self.solver))
+                make = ReplicatedFullStep if self.has_gas \
+                    else ReplicatedTreeStep
+                fns.append(make(*kit, pm_step=pm, solver=self.solver,
+                                **gas))
         if cfg.pmgrid:
             self._step_pm_fn, self._step_fn = fns
         else:
             self._step_pm_fn, self._step_fn = None, fns[0]
 
+    def _step_sum(self, name: str):
+        return sum(getattr(f, name, 0)
+                   for f in (self._step_pm_fn, self._step_fn) if f)
+
     @property
     def cap_retries(self) -> int:
         """LET exchanges repeated after a cap overflow, so far."""
-        return sum(getattr(f, "cap_retries", 0)
-                   for f in (self._step_pm_fn, self._step_fn) if f)
+        return self._step_sum("cap_retries")
+
+    @property
+    def ghost_retries(self) -> int:
+        """SPH ghost-cap growths and density reruns with a wider ghost
+        margin (LET with gas), so far."""
+        return self._step_sum("ghost_retries"), \
+            self._step_sum("margin_retries")
+
+    @property
+    def sph_seconds(self) -> float:
+        """Wall seconds in the SPH passes, so far (the card synchronised)."""
+        return self._step_sum("sph_seconds")
 
     @property
     def time(self) -> float:
@@ -221,9 +295,11 @@ class DistributedSimulation:
         fn = self._step_pm_fn if pm_due else self._step_fn
         extra = ((self.pm_ti_begstep, self.pm_ti_endstep) if pm_due
                  else ()) + tuple(mode_extra)
-        res = fn(self.p, self.ti_current, ti_next, time_next, *extra)
+        res = fn(self.p, self.ti_current, ti_next, time_next, *extra,
+                 sph=self.sph)
         self.let_rows = getattr(fn, "rows_received", None)
-        self.p = res.p
+        self.ghost_rows = list(getattr(fn, "ghost_rows", [])) or None
+        self.p, self.sph = res.p, res.sph
         self.ti_current = ti_next
         self._min_end = res.min_end
         if cfg.flexsteps:
@@ -293,11 +369,13 @@ class DistributedSimulation:
         even under PMGRID, begrun.c:47-49).  Returns its rows on rank 0,
         None on the others."""
         from ..diagnostics.forcetest import force_test as _ft
-        p, _ = self.gather_ordered()
+        p, sph = self.gather_ordered()
         if self.mesh.rank != 0:
             return None
         shim = SimpleNamespace(
-            cfg=self.cfg, p=p.to(self.device), sph=None, wiring=self.wiring,
+            cfg=self.cfg, p=p.to(self.device),
+            sph=sph.to(self.device) if sph is not None else None,
+            wiring=self.wiring,
             units=self.units, force_soft=self.force_soft,
             solver=self.solver, ti_current=self.ti_current,
             step_count=self.step_count, log_dir=self.log_dir)
@@ -305,9 +383,13 @@ class DistributedSimulation:
 
     def domain_decomposition(self):
         """Re-split by measured work (domain_Decomposition, domain.c:62)."""
-        self.p = reshard_by_cost(
-            self.p, self.mesh, alloc_factor=self.alloc_factor,
-            box=self.cfg.box_size if self.cfg.periodic else 0.0)
+        kw = dict(alloc_factor=self.alloc_factor,
+                  box=self.cfg.box_size if self.cfg.periodic else 0.0)
+        if self.has_gas:
+            self.p, self.sph = reshard_by_cost(self.p, self.mesh,
+                                               sph=self.sph, **kw)
+        else:
+            self.p = reshard_by_cost(self.p, self.mesh, **kw)
         self._since_reshard = 0
 
     def _original_rows(self, pid: np.ndarray) -> np.ndarray:
@@ -377,13 +459,19 @@ class DistributedSimulation:
     def gather_ordered(self):
         """The whole state on every rank, on the host, padding dropped, in
         the original (type-sorted) row order by particle ID.  Returns
-        (Particles, None)."""
+        (Particles, SphState or None)."""
         pf = gather_rows(self.mesh, self.p)
         pf = Particles(**{k: v.cpu() for k, v in vars(pf).items()})
         live = np.nonzero(pf.pid.numpy() >= 0)[0]
-        perm = np.empty(self.n_real, np.int64)
-        perm[self._original_rows(pf.pid.numpy()[live])] = live
-        return take_rows(pf, torch.as_tensor(perm)), None
+        perm = torch.as_tensor(np.empty(self.n_real, np.int64))
+        perm[self._original_rows(pf.pid.numpy()[live])] = \
+            torch.as_tensor(live)
+        sph = None
+        if self.sph is not None:
+            sf = gather_rows(self.mesh, self.sph)
+            sph = take_rows(SphState(**{k: v.cpu()
+                                        for k, v in vars(sf).items()}), perm)
+        return take_rows(pf, perm), sph
 
     def _snapshot_path(self, path):
         """The snapshot path, the same on every rank; never the working
@@ -406,10 +494,11 @@ class DistributedSimulation:
         if self.n_dev > 1:
             self._write_snapshot_sharded(path)
         else:
-            p, _ = self.gather_ordered()
+            p, sph = self.gather_ordered()
             data = build_snapshot_data(
                 self.cfg, self.tables, float(self.tbi), p, self.ti_current,
-                self.time, pm_window=self._pm_window(), units=self.units)
+                self.time, pm_window=self._pm_window(), sph=sph,
+                n_gas=self.n_gas if sph is not None else 0, units=self.units)
             write_snapshot_files(self.cfg, path, data)
         self.snapshot_count += 1
         return path
@@ -432,9 +521,12 @@ class DistributedSimulation:
             ptype.long(), minlength=6).to(torch.int32)).cpu().numpy()
         order = live[torch.sort(ptype, stable=True).indices]
         pk = Particles(**{k: v[order].cpu() for k, v in vars(p).items()})
+        sk = None if self.sph is None else SphState(
+            **{k: v[order].cpu() for k, v in vars(self.sph).items()})
         data = build_snapshot_data(cfg, self.tables, float(self.tbi), pk,
                                    self.ti_current, self.time,
-                                   pm_window=self._pm_window(),
+                                   pm_window=self._pm_window(), sph=sk,
+                                   n_gas=int(torch.sum(pk.ptype == 0)),
                                    units=self.units)
         data.header.npart_total = totals.astype(np.uint32)
         data.header.num_files = self.n_dev
@@ -452,12 +544,13 @@ class DistributedSimulation:
 
     def energy_statistics(self):
         """The energy.txt line (run.c:413-433) from the gathered state."""
-        p, _ = self.gather_ordered()
+        p, sph = self.gather_ordered()
         com = self.cfg.comoving_integration
         s = compute_global_quantities(
             p.to(self.device), self.tables, self.ti_current,
             pm_window=self._pm_window(), atime=self.time if com else 1.0,
-            sph=None, cfg=self.cfg,
+            sph=sph.to(self.device) if sph is not None else None,
+            cfg=self.cfg,
             a3inv=1.0 / self.time ** 3 if com else 1.0)
         if "energy" in self._logs:
             self._logs["energy"].write(format_energy_line(self.time, s)
@@ -466,15 +559,19 @@ class DistributedSimulation:
         return s
 
     def save_restart(self, path: str | None = None) -> str:
-        """Restart dump (restart.c:35): the gathered state and the
-        timeline, under the JAX runner's keys, written by rank 0."""
-        p, _ = self.gather_ordered()
+        """Restart dump (restart.c:35): the gathered state (the gas state
+        under `s_` keys) and the timeline, under the JAX runner's keys,
+        written by rank 0."""
+        p, sph = self.gather_ordered()
         if path is None:
             path = os.path.join(self.log_dir or ".", "restart_dist.npz")
         if self.mesh.rank == 0:
             if os.path.exists(path):
                 os.replace(path, path + ".bak")  # .bak rotation (restart.c:45)
             payload = {f"p_{k}": v.numpy() for k, v in vars(p).items()}
+            if sph is not None:
+                payload.update({f"s_{k}": v.numpy()
+                                for k, v in vars(sph).items()})
             np.savez(path, ti_current=self.ti_current, min_end=self._min_end,
                      step_count=self.step_count,
                      num_force_updates=self.num_force_updates,
@@ -490,16 +587,22 @@ class DistributedSimulation:
         """Exact continuation from a restart dump (RestartFlag=1), this
         package's or the JAX runner's: the state and the timeline; the
         decomposition is made anew, the tree rebuilt."""
-        from ..interop import particles_from_numpy, read_distributed_restart
+        from ..interop import (particles_from_numpy, read_distributed_restart,
+                               sph_from_numpy)
         if path is None:
             path = os.path.join(self.log_dir or ".", "restart_dist.npz")
         z = read_distributed_restart(path)
-        if z["sph"] is not None:
-            raise NotImplementedError(GAS_REFUSAL)
+        if (z["sph"] is not None) != self.has_gas:
+            raise ValueError(f"{path}: the restart file's gas state does "
+                             "not match this run's")
         p = particles_from_numpy(z["particles"], "cpu")
-        self.p = decompose(
-            p, self.mesh, alloc_factor=self.alloc_factor,
-            box=self.cfg.box_size if self.cfg.periodic else 0.0)
+        kw = dict(alloc_factor=self.alloc_factor,
+                  box=self.cfg.box_size if self.cfg.periodic else 0.0)
+        if self.has_gas:
+            self.p, self.sph = decompose(
+                p, self.mesh, sph=sph_from_numpy(z["sph"], "cpu"), **kw)
+        else:
+            self.p = decompose(p, self.mesh, **kw)
         s = z["scalars"]
         self.ti_current = int(s["ti_current"])
         self._min_end = int(s["min_end"])

@@ -42,7 +42,8 @@ import numpy as np
 import torch
 
 from ..constants import SOFTFAC_SPLINE
-from ..integrate.kdk import box_wrap, drift, pm_kick
+from ..integrate.kdk import (box_wrap, drift, pm_kick, pm_kick_vel_pred,
+                             predict_sph)
 from ..integrate.timeline import pm_window_update, timebase_interval
 from ..ops.morton import morton_keys2, sort_by_keys2
 from ..ops.solver import GravitySolver, apply_cosmo_corrections
@@ -60,6 +61,7 @@ class StepResult(NamedTuple):
     n_active: int           # particles active at ti_next, all ranks
     pm_beg: int             # the PM window after the step
     pm_end: int
+    sph: object = None      # this rank's gas state after the step (gas runs)
 
 
 def _bits(v: int, dev) -> torch.Tensor:
@@ -104,7 +106,14 @@ class _TreeStepBase:
     corrections, PM, the kick with the special modes, the PM window and
     the sync-point reduction.  Under PMGRID `pm_step` picks the variant
     that recomputes the long-range force and applies the PM kick (called
-    with the PM window) or the one that holds accel_pm."""
+    with the PM window) or the one that holds accel_pm.
+
+    Called with `sph=` (this rank's gas state, rows as `p`) the step also
+    predicts the gas (predict.c:55-76), builds its trees with the
+    smoothing lengths, runs the SPH passes after gravity (`_sph_forces`,
+    the full steps of `full_sharded` / `full_let_sharded`), kicks the gas
+    and, on PM steps, re-predicts the gas velocities after the PM kick
+    (timestep.c:392-406)."""
 
     def __init__(self, cfg, units, wiring, tables, mesh: Mesh,
                  opening=None, pm_step=True, solver=None):
@@ -137,9 +146,17 @@ class _TreeStepBase:
         self.mode_kick, self.n_mode_extras = make_mode_kick(
             cfg, units, tables, self.soft_table, mesh)
 
-    def _gravity(self, p, mass, fsoft, opening):
-        """(acc, pot, interactions) in G = 1 units in local order."""
+    def _gravity(self, p, mass, fsoft, opening, hsml=None):
+        """(acc, pot, interactions) in G = 1 units in local order; `hsml`
+        (gas smoothing lengths, 0 elsewhere) goes into the tree."""
         raise NotImplementedError
+
+    def _sph_forces(self, p, sph, ti_next: int, time_next: float):
+        """The density and hydro passes of the active gas (accel.c:60-89);
+        the full steps define them."""
+        raise TypeError(f"{type(self).__name__} is collisionless: gas runs "
+                        "take the full steps (parallel/full_sharded.py, "
+                        "parallel/full_let_sharded.py)")
 
     def _bootstrap_needed(self, p) -> bool:
         if self._rel_ready:
@@ -149,16 +166,21 @@ class _TreeStepBase:
         return float(mx[0]) == 0.0
 
     def __call__(self, p, ti_current: int, ti_next: int, time_next: float,
-                 *rest) -> StepResult:
+                 *rest, sph=None) -> StepResult:
         cfg, mesh = self.cfg, self.mesh
         if self.pm_update:
             pm_beg, pm_end, extras = int(rest[0]), int(rest[1]), rest[2:]
         else:
             pm_beg = pm_end = 0
             extras = rest
+        if sph is not None:
+            # the SPH prediction (predict.c:55-76)
+            sph = predict_sph(cfg, p, sph, self.tables, ti_current, ti_next)
         # drift all local particles to the sync point (predict.c:31)
         p = box_wrap(cfg, drift(p, self.tables, ti_current, ti_next))
         live = p.pid >= 0
+        hsml = None if sph is None else torch.where(
+            (p.ptype == 0) & live, sph.hsml, 0.0)
         fsoft = self.fsoft_by_type[p.ptype.long()]
         mass = torch.where(live, p.mass, 0.0)     # padding rows are inert
         accel_pm = p.accel_pm
@@ -177,9 +199,9 @@ class _TreeStepBase:
 
         if self._bootstrap_needed(p):
             # the relative criterion needs OldAcc (accel.c:48-52)
-            acc0, pot0, _ = self._gravity(p, mass, fsoft, "bh")
+            acc0, pot0, _ = self._gravity(p, mass, fsoft, "bh", hsml)
             p = p.replace(old_acc=corrected(acc0, pot0)[1])
-        acc, pot, nia = self._gravity(p, mass, fsoft, self.opening)
+        acc, pot, nia = self._gravity(p, mass, fsoft, self.opening, hsml)
         acc, amag, pot = corrected(acc, pot)
         if self.pm_sharded is not None and self.want_pot:
             # long-range PM potential (potential.c:268-306)
@@ -190,21 +212,28 @@ class _TreeStepBase:
                       # measured work for the next decomposition
                       # (GravCost, forcetree.c:1595 / domain.c:859-862)
                       grav_cost=nia.to(p.grav_cost.dtype))
+        if sph is not None:
+            # density, smoothing lengths and hydro (accel.c:60-89)
+            sph = self._sph_forces(p, sph, ti_next, time_next)
         # the kick (timestep.c), with the cross-rank displacement
         # constraint (timestep.c:587-651) and the special modes
         dt_disp = sharded_dt_displacement(cfg, self.units, p, time_next,
                                           mesh)
-        p = self.mode_kick(p, ti_next, dt_disp, time_next, extras)
+        p, sph = self.mode_kick(p, sph, ti_next, dt_disp, time_next, extras)
         if self.pm_update:
             # the PM kick over the midpoint window (timestep.c:350-408)
             tstart, tend, pm_beg, pm_end = pm_window_update(
                 ti_next, pm_beg, pm_end, dt_disp, float(self.tbi))
             p = pm_kick(p, self.tables, tstart, tend)
+            if sph is not None:
+                # the gas velocities re-predicted (timestep.c:392-406)
+                sph = pm_kick_vel_pred(p, sph, self.tables, ti_next, pm_beg,
+                                       pm_end)
         stats = mesh.all_gather(torch.stack([
             torch.amin(p.ti_endstep),
             n_act.to(torch.int32)]).to(torch.int32)[None]).cpu()
         return StepResult(p, int(stats[:, 0].min()), int(stats[:, 1].sum()),
-                          pm_beg, pm_end)
+                          pm_beg, pm_end, sph)
 
 
 class ReplicatedTreeStep(_TreeStepBase):
@@ -216,15 +245,18 @@ class ReplicatedTreeStep(_TreeStepBase):
     *mode_extras) -> StepResult (the PM window for the PM-step variant
     under PMGRID)."""
 
-    def _gravity(self, p, mass, fsoft, opening):
+    def _build(self, p, mass, fsoft, aold, hsml=None):
+        """The replicated tree: every rank's rows gathered, put in
+        particle-ID order, and built alike on every rank.  Keeps the tree,
+        the gathered rows' permutation and their IDs for the walk and the
+        SPH passes."""
         cfg, mesh, solver = self.cfg, self.mesh, self.solver
-        nloc = p.pos.shape[0]
-        dev = p.pos.device
-        aold = cfg.err_tol_force_acc * p.old_acc / self.G  # G = 1 units
-        rows = mesh.all_gather(torch.cat([
-            p.pos, mass[:, None], fsoft[:, None], aold[:, None],
-            p.grav.view(torch.float32)[:, None],
-            p.pid.view(torch.float32)[:, None]], dim=1))
+        cols = [p.pos, mass[:, None], fsoft[:, None], aold[:, None],
+                p.grav.view(torch.float32)[:, None],
+                p.pid.view(torch.float32)[:, None]]
+        if hsml is not None:
+            cols.append(hsml[:, None])
+        rows = mesh.all_gather(torch.cat(cols, dim=1))
         # rows in particle-ID order: the tree (and so every force) does not
         # depend on which rank holds which particle, so a resumed run,
         # decomposed anew, continues bit for bit
@@ -236,10 +268,21 @@ class ReplicatedTreeStep(_TreeStepBase):
         # the identical build on every rank (forcetree.c:61); the open
         # box's root cube spans every row, padding at the origin included
         tree = build_tree(rows[:, 0:3], rows[:, 3], grav_f, rows[:, 4],
-                          rows[:, 5], depth=solver.depth,
+                          rows[:, 5], hsml=None if hsml is None
+                          else rows[:, 8].contiguous(), depth=solver.depth,
                           n_gravs=cfg.n_gravs, bucket=cfg.tree_bucket_size,
                           box_size=solver.box,
                           group_size=cfg.walk_group_size)
+        self._tree, self._perm, self._pid_f = tree, perm, pid_f
+        return tree
+
+    def _gravity(self, p, mass, fsoft, opening, hsml=None):
+        cfg, mesh, solver = self.cfg, self.mesh, self.solver
+        nloc = p.pos.shape[0]
+        dev = p.pos.device
+        aold = cfg.err_tol_force_acc * p.old_acc / self.G  # G = 1 units
+        tree = self._build(p, mass, fsoft, aold, hsml)
+        perm, pid_f = self._perm, self._pid_f
         # my contiguous slice of the sorted targets, padding rows skipped
         slot = mesh.rank * nloc + torch.arange(nloc, device=dev)
         tgt = torch.where(pid_f[tree.order[slot].long()] >= 0, slot, -1)
@@ -321,30 +364,40 @@ def block_of(obj, rows: np.ndarray, cap: int, device):
     return type(obj)(**kw)
 
 
-def decompose(p, mesh: Mesh, alloc_factor: float = 1.25, box: float = 0.0):
+def decompose(p, mesh: Mesh, alloc_factor: float = 1.25, box: float = 0.0,
+              sph=None):
     """The work-balanced split of the GLOBAL live particles `p` (every
     rank holds the same rows): this rank's block, capacity
     ceil(N/K * alloc_factor), weights w_i = 1 + GravCost_i (times
-    domain.c:859-862).  Returns this rank's particles."""
+    domain.c:859-862).  Returns this rank's particles, or (particles, gas
+    state) when the gas state `sph` (rows as `p`) is given: its rows go
+    with their particles, padded with zeros."""
     w = 1.0 + p.grav_cost.cpu().numpy().astype(np.float64)
     order, bounds, cap = cost_split(p.pos.cpu().numpy(), w, mesh.size,
                                     alloc_factor, box)
     rows = order[bounds[mesh.rank]:bounds[mesh.rank + 1]]
-    return block_of(p, rows, cap, mesh.device)
+    mine = block_of(p, rows, cap, mesh.device)
+    if sph is None:
+        return mine
+    return mine, block_of(sph, rows, cap, mesh.device)
 
 
 def reshard_by_cost(p, mesh: Mesh, alloc_factor: float = 1.25,
-                    box: float = 0.0):
+                    box: float = 0.0, sph=None):
     """Work-balanced domain decomposition of the ranks' shards: every rank
     gathers the equal-capacity shards, drops the padding rows, and
     computes the same host order and split (`cost_split`), so every
     particle goes to the rank JAX's `reshard_by_cost` gives it on the same
     live rows.  Capacity comes from the live count (JAX's counts its
     padding rows too, so its capacity grows by alloc_factor at every
-    re-decomposition).  Returns this rank's particles."""
+    re-decomposition).  Returns this rank's particles, or (particles, gas
+    state) with the gas state `sph`."""
     pf = gather_rows(mesh, p)
-    pf = take_rows(pf, torch.nonzero(pf.pid >= 0).squeeze(1))
-    return decompose(pf, mesh, alloc_factor, box)
+    live = torch.nonzero(pf.pid >= 0).squeeze(1)
+    pf = take_rows(pf, live)
+    if sph is not None:
+        sph = take_rows(gather_rows(mesh, sph), live)
+    return decompose(pf, mesh, alloc_factor, box, sph=sph)
 
 
 # --------------------------------------------------------------------------
@@ -604,7 +657,8 @@ class LetTreeStep(_TreeStepBase):
          direct sources for all its targets on top of the exact fused walk
          of its own tree.
 
-    Collisionless; pure tree (open or periodic with the Ewald lattice
+    Gravity for any run (the gas passes are `full_let_sharded.
+    LetFullStep`'s); pure tree (open or periodic with the Ewald lattice
     pass) or TreePM with the closed-form truncation.  Called as
     `ReplicatedTreeStep`; `caps`: a dict(expn, expp) of the exchange caps
     that several steps may share, grown in place."""
@@ -637,27 +691,18 @@ class LetTreeStep(_TreeStepBase):
             cutoff=sr_cutoff, want_pot=self.want_pot)
         # the exchange caps (JAX's first expn_cap / expp_cap), a dict the
         # runner shares between its step variants
-        self.caps = caps if caps is not None else dict(expn=4096, expp=8192)
+        self.caps = caps if caps is not None else {}
+        self.caps.setdefault("expn", 4096)
+        self.caps.setdefault("expp", 8192)
         self.rows_received = None
         self.cap_retries = 0
 
-    def _exchange(self, opening: str):
-        """The exchange at the current caps (rounded up to 8 and to whole
-        evaluation chunks, as the JAX step rounds them)."""
-        ng = self.cfg.n_gravs
-        exn = ((self.caps["expn"] + 7) // 8) * 8
-        exp = ((self.caps["expp"] + 7) // 8) * 8
-        rcap = ((exn * ng + exp + EC - 1) // EC) * EC
-        return make_let_exchange(
-            mesh=self.mesh, NG=ng, EXN=exn, EXP=exp, RCAP=rcap,
-            theta=self.cfg.err_tol_theta, opening=opening,
-            sr_cutoff=self.sr_cutoff, periodic=self.box > 0, box=self.box)
-
-    def _gravity(self, p, mass, fsoft, opening):
-        cfg, mesh, solver = self.cfg, self.mesh, self.solver
-        nloc = p.pos.shape[0]
+    def _local_tree(self, p, mass, fsoft, aold, hsml=None):
+        """The tree over this rank's particles only, on the global root
+        cell (pmin / pmax of the live bounding boxes; the box when
+        periodic), and every rank's [lo, hi, least aold] row."""
+        cfg, mesh = self.cfg, self.mesh
         dev = p.pos.device
-        aold = cfg.err_tol_force_acc * p.old_acc / self.G
         live = p.pid >= 0
         big = 1e30
         lo_l = torch.amin(torch.where(live[:, None], p.pos, big), dim=0)
@@ -672,12 +717,31 @@ class LetTreeStep(_TreeStepBase):
             corner = (glo + ghi) / 2 - root_len / 2
         info = mesh.all_gather(torch.cat([
             lo_l, hi_l, torch.amin(torch.where(live, aold, big))[None]])[None])
-        # the local tree over my particles only, on the global root cell
-        tree = build_tree(p.pos, mass, p.grav, fsoft, aold,
-                          depth=solver.depth, n_gravs=cfg.n_gravs,
+        tree = build_tree(p.pos, mass, p.grav, fsoft, aold, hsml=hsml,
+                          depth=self.solver.depth, n_gravs=cfg.n_gravs,
                           bucket=cfg.tree_bucket_size,
                           group_size=cfg.walk_group_size,
                           corner=corner, root_len=root_len)
+        return tree, info
+
+    def _exchange(self, opening: str):
+        """The exchange at the current caps (rounded up to 8 and to whole
+        evaluation chunks, as the JAX step rounds them)."""
+        ng = self.cfg.n_gravs
+        exn = ((self.caps["expn"] + 7) // 8) * 8
+        exp = ((self.caps["expp"] + 7) // 8) * 8
+        rcap = ((exn * ng + exp + EC - 1) // EC) * EC
+        return make_let_exchange(
+            mesh=self.mesh, NG=ng, EXN=exn, EXP=exp, RCAP=rcap,
+            theta=self.cfg.err_tol_theta, opening=opening,
+            sr_cutoff=self.sr_cutoff, periodic=self.box > 0, box=self.box)
+
+    def _gravity(self, p, mass, fsoft, opening, hsml=None):
+        cfg, mesh, solver = self.cfg, self.mesh, self.solver
+        nloc = p.pos.shape[0]
+        dev = p.pos.device
+        aold = cfg.err_tol_force_acc * p.old_acc / self.G
+        tree, info = self._local_tree(p, mass, fsoft, aold, hsml)
         for _ in range(6):
             recv, flags = self._exchange(opening)(
                 tree, info[:, 0:3], info[:, 3:6], info[:, 6], nloc)
@@ -695,7 +759,7 @@ class LetTreeStep(_TreeStepBase):
         # live rows received this step (read by the runner's statistics)
         self.rows_received = torch.sum(
             recv[:, 7].contiguous().view(torch.int32) != -1)
-        tgt = torch.where(live[tree.order.long()],
+        tgt = torch.where((p.pid >= 0)[tree.order.long()],
                           torch.arange(nloc, device=dev), -1)
         res = walk_targets(solver, tree, tgt, opening, self.want_pot)
         remote = self.remote_eval(recv, tree.pos_s, tree.grav_s,
@@ -704,5 +768,6 @@ class LetTreeStep(_TreeStepBase):
         pot_s = res.pot + remote[:, 3]
         inv = torch.empty(nloc, dtype=torch.long, device=dev)
         inv[tree.order.long()] = torch.arange(nloc, device=dev)
+        self._tree = tree      # kept for the SPH passes of the full step
         return acc_s[inv], pot_s[inv], \
             res.ninteract.to(torch.float32)[inv]

@@ -10,7 +10,7 @@ the last snapshot in OutputDir.  The run is on the CUDA card unless
 
 `--devices K` is the `mpirun -n K` analog: K ranks on this host, spawned
 processes over `torch.distributed` running `parallel.runner.
-DistributedSimulation` (collisionless).  On the card rank r takes cuda:r
+DistributedSimulation` (with SPH gas when the ICs hold it).  On the card rank r takes cuda:r
 over NCCL; `--backend gloo` lets K ranks share fewer cards; `--device cpu`
 runs the ranks on the CPU over gloo.  The first line names the backend.
 """
@@ -117,25 +117,20 @@ def _last_snapshot(cfg):
 def _rank_main(mesh, paramfile: str, restartflag: int):
     """One rank of a `--devices K` run."""
     from .integrate.runner import load_initial_conditions
-    from .io.gadget_format import read_snapshot_set
-    from .parallel.runner import GAS_REFUSAL, DistributedSimulation
-    from .particles import Particles
+    from .parallel.runner import DistributedSimulation
     from .units import set_units
     cfg = read_parameter_file(paramfile)
     units = set_units(cfg)
-    sph = None
-    if restartflag == 2:
-        # the newest snapshot set, as an IC (init.c:84-85)
-        snap = read_snapshot_set(_last_snapshot(cfg))
-        if snap.header.npart[0]:
-            raise NotImplementedError(GAS_REFUSAL)
-        vel = snap.vel * (cfg.time_begin ** 1.5
-                          if cfg.comoving_integration else 1.0)
-        p = Particles.create(snap.pos, vel, snap.mass, snap.pid, snap.ptype,
-                             cfg.type_to_grav, device="cpu")
-    else:
-        p, sph = load_initial_conditions(cfg, units, device="cpu")
-    sim = DistributedSimulation(cfg, p, sph=sph, mesh=mesh)
+    # restartflag 2: the newest snapshot set, read whole, as the ICs
+    # (init.c:84-85); its gas blocks carry u, like an IC's
+    p, sph = load_initial_conditions(
+        cfg, units, ic_path=_last_snapshot(cfg) if restartflag == 2 else None,
+        device="cpu")
+    # the IC's internal energy becomes entropy before the first step; a
+    # restart file holds entropy already (JAX run.py:92-94)
+    sim = DistributedSimulation(cfg, p, sph=sph, mesh=mesh,
+                                entropy_is_u=sph is not None
+                                and restartflag != 1)
     if restartflag == 1:
         # resume from the multi-device restart file (restart.c:35)
         sim.resume()

@@ -2,10 +2,12 @@
 the main path and the comoving TreePM box path on CUDA against the same
 code on the CPU; the periodic walk's lattice pass and the tabulated TreePM
 evaluation on the card against the CPU; runs on the card that repeat bit
-for bit (two force passes, two three-step runs, a resume); and segments on
+for bit (two force passes, two three-step runs, a resume); segments on
 the card: the direct path's bit for bit its single stepping, the tree
 path's within the CPU test's tolerance of it, and the table drift equal
-to the CPU's.
+to the CPU's; and one rank over NCCL: the collisionless step against the
+single device, the replicated and the LET gas steps against the same
+steps on the CPU.
 
 Every test here needs an NVIDIA GPU and skips without one.  This file
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -828,3 +830,41 @@ def test_distributed_one_rank_over_nccl_matches_single_device(cuda,
         / np.maximum(np.linalg.norm(a, axis=1), 1e-12)
     assert np.sqrt(np.mean(rel ** 2)) < 5e-3
     assert int(o["k1"]) > 0
+
+
+def test_distributed_gas_steps_over_nccl_match_cpu(cuda, tmp_path):
+    """The replicated and the LET gas step (`parallel/full_sharded.py`,
+    `full_let_sharded.py`) on one rank over NCCL on cuda:0 against the same
+    steps on one gloo rank on the CPU, from the gas box of `_gas_box_sims`
+    (u taken as entropy): the SPH fields within 1e-5 (relative; hydro of
+    its largest value), gravity and PM within 1e-5 of their largest |a|,
+    the same timesteps."""
+    import dataclasses
+    import os
+    import sys
+    from ngravs_tpu_torch.interop import particles_to_numpy
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_parallel_ranks as R
+    sims, n = _gas_box_sims(cuda)
+    sim = sims[0]
+    path = str(tmp_path / "gas.npz")
+    np.savez(path, **particles_to_numpy(sim.p),
+             **{f"s_{k}": v.numpy() for k, v in vars(sim.sph).items()})
+    kw = {f.name: getattr(sim.cfg, f.name)
+          for f in dataclasses.fields(sim.cfg)}
+    outs = [R.run_ranks(R.full_steps, 1, tmp_path, kw, path, ("rep", "let"),
+                        backend=b, device=d)[0]
+            for b, d in (("gloo", "cpu"), ("nccl", "cuda"))]
+    for mode in ("rep", "let"):
+        want, got = ({k[len(mode) + 1:]: v for k, v in o.items()
+                      if k.startswith(mode + "_")} for o in outs)
+        np.testing.assert_array_equal(got["ti_endstep"], want["ti_endstep"])
+        for k in ("accel", "pm", "hydro_accel"):
+            scale = np.abs(want[k][:n] if k == "hydro_accel"
+                           else want[k]).max()
+            assert np.abs(got[k] - want[k]).max() <= 1e-5 * scale, (mode, k)
+        for k in ("density", "hsml", "pressure", "num_ngb",
+                  "max_signal_vel"):
+            a, b = want[k][:n], got[k][:n]
+            assert (np.abs(a - b) <= 1e-5 * np.abs(a) + 1e-30).all(), \
+                (mode, k)

@@ -16,8 +16,9 @@ and `python -m ngravs_tpu_torch.run --devices K`, on gloo ranks on the CPU.
    file a rank) reads back equal to `gather_ordered()`.
  * FLEXSTEPS and PSEUDOSYMMETRIC (:669-700) and MAKEGLASS (:703-734)
    properties on 2 ranks.
- * The command line: `--devices 2 --device cpu` ends with 0; a gas IC
-   raises naming ROADMAP Queue 1 item 18b.
+ * The command line: `--devices 2 --device cpu` ends with 0, on a
+   collisionless IC and on a gas IC (whose u becomes entropy before the
+   first step); the gas run's snapshot set holds the gas blocks.
 """
 
 import os
@@ -240,9 +241,17 @@ def test_run_cli_devices(tmp_path):
     assert os.path.exists(os.path.join(out, "energy.txt"))
 
 
-def test_run_cli_devices_refuses_gas(tmp_path):
-    param, _ = _write_run(tmp_path, (256, 256, 0, 0, 0, 0),
-                          u=np.ones(256, np.float32))
+def test_run_cli_devices_gas(tmp_path):
+    from ngravs_tpu_torch.io.gadget_format import read_snapshot_set
+    param, out = _write_run(tmp_path, (256, 256, 0, 0, 0, 0),
+                            u=np.ones(256, np.float32))
     r = _cli(param, "--devices", "2", "--device", "cpu")
-    assert r.returncode != 0
-    assert "item 18b" in r.stderr
+    assert r.returncode == 0, r.stderr[-3000:]
+    lines = r.stdout.strip().splitlines()
+    assert "over gloo" in lines[0] and lines[-1].startswith("done:")
+    snap = read_snapshot_set(os.path.join(out, "snapshot_001"))
+    assert int(snap.header.npart[0]) == 256 and snap.header.num_files == 1
+    for blk in ("u", "rho", "hsml"):
+        a = getattr(snap, blk)
+        assert a is not None and a.shape == (256,), blk
+        assert np.isfinite(a).all() and (a > 0).all(), blk

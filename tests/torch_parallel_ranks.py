@@ -161,17 +161,28 @@ def simulate(mesh, out, cfg_kw, inp_path, opts):
     """A DistributedSimulation run; opts: steps, use_let, log_dir,
     restart_at (save a restart there, finish, then resume a fresh run from
     it and finish again), snapshot (write one set at the end),
-    resume_from (a restart file to start from)."""
+    resume_from (a restart file to start from), entropy_is_u (the inputs'
+    gas entropy holds u).  Inputs with `s_<field>` arrays carry gas."""
     from ngravs_tpu_torch.ops import pairwise
     from ngravs_tpu_torch.parallel.runner import DistributedSimulation
     cfg = config(cfg_kw)
     inp = dict(np.load(inp_path))
     pairwise.reset_counts()
 
-    def make():
-        return DistributedSimulation(cfg, particles(inp, cfg), mesh=mesh,
+    sph = None
+    if "s_entropy" in inp:
+        from ngravs_tpu_torch.interop import sph_from_numpy
+        from ngravs_tpu_torch.particles import SphState
+        import dataclasses
+        sph = sph_from_numpy({f.name: inp[f"s_{f.name}"]
+                              for f in dataclasses.fields(SphState)}, "cpu")
+
+    def make(entropy_is_u=opts.get("entropy_is_u", False)):
+        return DistributedSimulation(cfg, particles(inp, cfg), sph=sph,
+                                     mesh=mesh,
                                      log_dir=opts.get("log_dir", ""),
-                                     use_let=opts.get("use_let", False))
+                                     use_let=opts.get("use_let", False),
+                                     entropy_is_u=entropy_is_u)
     sim = make()
     if opts.get("resume_from"):
         sim.resume(opts["resume_from"])
@@ -182,7 +193,10 @@ def simulate(mesh, out, cfg_kw, inp_path, opts):
             sim.save_restart(opts["restart_path"])
         sim.step()
         syncs.append((sim.ti_current, sim.pm_ti_begstep, sim.pm_ti_endstep))
-    p, _ = sim.gather_ordered()
+    p, gas = sim.gather_ordered()
+    if gas is not None:
+        res.update({f"s_{k}": v.numpy() for k, v in vars(gas).items()})
+        res["ghost_retries"] = np.array(sim.ghost_retries)
     res.update(pos=p.pos.numpy(), vel=p.vel.numpy(), pid=p.pid.numpy(),
                accel=p.accel.numpy(), accel_pm=p.accel_pm.numpy(),
                ti_endstep=p.ti_endstep.numpy(),
@@ -195,16 +209,71 @@ def simulate(mesh, out, cfg_kw, inp_path, opts):
         res["present"] = np.array([sim.present_min_step,
                                    sim.present_max_step])
     if opts.get("restart_at") is not None:
-        again = make()
+        again = make(entropy_is_u=False)
         again.resume(opts["restart_path"])
         for _ in range(opts["steps"] - opts["restart_at"]):
             again.step()
-        q, _ = again.gather_ordered()
+        q, qgas = again.gather_ordered()
         res.update({f"resumed_{k}": getattr(q, k).numpy()
                     for k in ("pos", "vel", "accel", "ti_endstep",
                               "ti_begstep", "old_acc")})
+        if qgas is not None:
+            res.update({f"resumed_s_{k}": v.numpy()
+                        for k, v in vars(qgas).items()})
         res.update({f"orig_{k}": getattr(p, k).numpy()
                     for k in ("old_acc",)})
     if opts.get("snapshot"):
         res["snapshot"] = sim.write_snapshot_now(opts["snapshot"])
+    save(out, mesh, **res)
+
+
+def sph_shard(inp: dict, mesh):
+    """This rank's rows of a whole padded gas state (`s_<field>` arrays)."""
+    from ngravs_tpu_torch.interop import sph_from_numpy
+    from ngravs_tpu_torch.particles import SphState
+    import dataclasses
+    n = len(inp["pos"])
+    nloc = n // mesh.size
+    sl = slice(mesh.rank * nloc, (mesh.rank + 1) * nloc)
+    return sph_from_numpy({f.name: inp[f"s_{f.name}"][sl]
+                           for f in dataclasses.fields(SphState)}, "cpu")
+
+
+def full_steps(mesh, out, cfg_kw, inp_path, modes):
+    """The replicated and the LET full step (gas) from one state laid out
+    as JAX's `shard_particles` lays it (contiguous blocks).  `modes`: names
+    "rep" / "let", or (name, "let", opts) with opts caps (the LET's first
+    caps)."""
+    from ngravs_tpu_torch.parallel.full_let_sharded import LetFullStep
+    from ngravs_tpu_torch.parallel.full_sharded import ReplicatedFullStep
+    cfg = config(cfg_kw)
+    kit = stepping_kit(cfg)
+    z = dict(np.load(inp_path))
+    p, sph = shard(z, mesh).to(mesh.device), sph_shard(z, mesh).to(mesh.device)
+    res = {"pid": p.pid.cpu().numpy()}
+    for mode in modes:
+        name, kind, opts = (mode, mode, {}) if isinstance(mode, str) \
+            else mode
+        if kind == "rep":
+            step = ReplicatedFullStep(cfg, *kit, mesh, pm_step=True)
+        else:
+            step = LetFullStep(cfg, *kit, mesh, pm_step=True,
+                               caps=dict(opts.get("caps", {})))
+        r = step(p, 0, 0, cfg.time_begin, 0, 0, sph=sph)
+        res[f"{name}_accel"] = r.p.accel.cpu().numpy()
+        res[f"{name}_pm"] = r.p.accel_pm.cpu().numpy()
+        for k in ("density", "hsml", "hydro_accel", "num_ngb",
+                  "dt_entropy", "max_signal_vel", "pressure", "vel_pred",
+                  "div_vel", "curl_vel", "dhsml_density_factor", "entropy"):
+            res[f"{name}_{k}"] = getattr(r.sph, k).cpu().numpy()
+        res[f"{name}_vel"] = r.p.vel.cpu().numpy()
+        res[f"{name}_ti_endstep"] = r.p.ti_endstep.cpu().numpy()
+        res[f"{name}_meta"] = np.array([r.min_end, r.n_active, r.pm_beg,
+                                        r.pm_end])
+        if kind == "let":
+            res[f"{name}_stats"] = np.array([step.ghost_retries,
+                                             step.margin_retries,
+                                             *step.ghost_rows])
+            res[f"{name}_caps"] = np.array([step.caps["ghost"],
+                                            step.caps["margin"]])
     save(out, mesh, **res)
