@@ -23,7 +23,7 @@ Phases (any failure raises and exits non-zero):
     particles of types 1-5 as BASELINE.md counts them, two Plummer spheres
     on a collision orbit, disk -> gravity 1) written in format 1 with its
     parameterfile, run as `read_parameter_file(..., direct_crossover=1000,
-    tree_depth=12)` -> `Simulation(cfg)` -> `run(max_steps=30)`; then one
+    tree_depth=12)` -> `Simulation(cfg)` -> `run(max_steps=10)`; then one
     full tree force pass checked against the direct sweep on the card (rms
     relative error < 5e-3), for finite forces and for the momentum rate
     |sum m a| / sum |m a| < 1e-3, timed with the kernel and with the twin
@@ -37,20 +37,20 @@ Phases (any failure raises and exits non-zero):
     wiring, written as a format-1 IC and parameterfile and run as
     `read_parameter_file(..., pmgrid=128, n_gravs=2,
     wiring="newton_yukawa", pm_interlace=True)` -> `Simulation(cfg)` ->
-    `run(max_steps=3)` with FORCETEST on 2,048 particles (2^-8 of them)
+    `run(max_steps=2)` with FORCETEST on 2,048 particles (2^-8 of them)
     on each PM step: K1 (the TreePM multi-law instance) and PM must run,
     forces finite, every step's FORCETEST rms relative error < 2.5e-2;
     then one full TreePM pass (PM + short-range walk)
     on every particle, checked on 2,048 sampled targets against the
     periodic direct sum with the Ewald lattice correction (rms relative
     error < 2.5e-2), timed with the kernel and with the twin, PM alone
-    timed, profiled; then the run repeats bit for bit (the tree's moments
-    and PM's mass assignment are fixed-order sums): two full force passes
-    from one state, and three steps continued against the same three
-    steps resumed from a restart file; the tree build and one CIC
-    assignment timed in turns against the atomic `index_add_` they
-    replaced; then K1 against the twin on that pass's largest launch, as
-    for slice 1;
+    timed, the pass for an eighth of the box profiled; then the run
+    repeats bit for bit (the tree's moments and PM's mass assignment are
+    fixed-order sums): two full force passes from one state, and two
+    steps continued against the same two resumed from a restart file;
+    the tree build and one CIC assignment timed in turns against the
+    atomic `index_add_` they replaced; then K1 against the twin on that
+    pass's largest launch, as for slice 1;
  6. slice 3, the gas box: the scheme of examples/cosmological_box.py:53-73
     at the box path's cosmology and width, 2 x 64^3 particles, type 0 gas
     (gravity 0, OmegaBaryon / Omega0 of the mass, IC u = 1 (km/s)^2)
@@ -68,24 +68,25 @@ Phases (any failure raises and exits non-zero):
     state (candidate lists equal, sums within 1e-5 of each target's sum
     of |terms|, the terms being the pass's own one candidate at a time);
     `save_restart` and `resume` into a fresh `Simulation` give every array
-    back bit for bit.  Then one step profiled (K1's, the density passes'
-    and the hydro pass's shares of device time) and K1 against the twin
-    on that step's largest launch;
+    back bit for bit.  Then one force computation for the particles of an
+    eighth of the box profiled (K1's, the density passes' and the hydro
+    pass's shares of device time) and K1 against the twin on its largest
+    launch;
  7. slice 4a, the periodic pure-tree (Ewald) box: slice 2's IC, cosmology,
     softening and newton_yukawa wiring without PMGRID, the geometric
-    opening criterion (theta 0.5), `run(max_steps=3)` with FORCETEST on
+    opening criterion (theta 0.5), `run(max_steps=2)` with FORCETEST on
     2,048 particles each step: K1 (the periodic multi-law instance, K1bc)
     must run beside the lattice pass; every step's FORCETEST rms relative
     error < 0.25 (the reference walk's error on this near-uniform IC; see
     RMS_EWALD), momentum rate < 1e-3; every
     K1 launch of a full pass within 1e-5 of its sum of |terms| of the
-    twin; the pass for the targets of an eighth of the box profiled (the
+    twin; the pass for the targets of a sixteenth of the box profiled (the
     `lattice_pass` range's share of device time); K1 against the twin on
     its largest launch;
  8. slice 4b, the TreePM box with the tabulated transition: slice 2's box
     with the yukawa preset (a NoneLaw diagonal, so no closed form: every
     pair takes the tabulated evaluation and K1 is not launched), PMGRID
-    128 interlaced, relative opening, `run(max_steps=3)` with FORCETEST on
+    128 interlaced, relative opening, `run(max_steps=2)` with FORCETEST on
     the PM steps: rms relative error < 3e-2 (tests/test_treepm.py:223),
     momentum rate < 1e-3; the run's largest tabulated evaluation on the
     card against the CPU within 1e-5 of each target's sum of |terms|;
@@ -160,7 +161,24 @@ Phases (any failure raises and exits non-zero):
     seconds of the last step.  Then a 2-step `--devices 2 --backend gloo`
     gas run through the command line (the scheme at 2 x 32^3, periodic
     pure tree: a parameterfile cannot ask for PMGRID) must end with 0 and
-    write a snapshot with its gas blocks.
+    write a snapshot with its gas blocks;
+13. the law matrix: four configurations, each with its K1 counts from 0
+    and its K1 instance required in them, every K1 launch of one full
+    force pass after its steps against the twin (within 1e-5 of each
+    target's sum of |terms|, pair counts equal) and its largest launch
+    timed, momentum rate < 1e-3: (a) `newton_yukawa` (BASELINE config 2)
+    on slice 1's IC, LAW_STEPS steps, K1b; (b) `bam` with
+    NGRAVS_ACCUMULATOR, the halo (type 1) BAM dark matter and the rest
+    baryons, the geometric criterion, LAW_STEPS steps, K1b+count; (a) and
+    (b) hold one full tree pass to the direct sweep with the same wiring,
+    rms by gravity < 5e-3, and (b) the same pass with the accumulator off
+    to a larger rms on the BAM targets; (c) the stock Newton law in slice
+    4a's periodic pure-tree box, EWALD_STEPS steps, K1c, FORCETEST rms
+    < 0.25; (d) `three_species` (BASELINE config 5) in slice 3's gas box
+    with a third lattice (type 2, gravity 2), 3 x 64^3, PMGRID 128
+    interlaced, LAW_BOX_STEPS steps, K1bcd at N_GRAVS=3, FORCETEST rms <
+    2.5e-2 and slice 3's gas-state gates; PM's nine pair rounds and the
+    SPH passes timed.
 
 `python3 chip_smoke.py --phases 6,12` runs the named phases alone (phase
 12 needs phase 6's run).  The line before the last is the card's name and
@@ -187,17 +205,18 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B, G, S = 128, 64, 4096          # the fused walk's pair-kernel shapes
 RTOL_TERMS = 1e-5                # of each target's sum of |terms|
-MAIN_STEPS = 30                  # slice 1's path
+MAIN_STEPS = 10                  # slice 1's path
+SEG_STEPS = 30                   # phase 9a's sync points
 # BASELINE.md:54 — GalaxyCollision.IC per-type counts (no gas)
 NPART = (0, 10000, 20000, 10000, 10000, 10000)
 # the box path
 BOX_NSIDE = 64                   # 2 x 64^3 particles
 BOX_SIZE = 50000.0               # kpc/h
 BOX_PMGRID = 128
-BOX_STEPS = 3
+BOX_STEPS = 2
 ORACLE_TARGETS = 2048
 # the gas path
-GAS_STEPS = 3
+GAS_STEPS = 2
 GAS_SAMPLE_BLOCKS = 64
 DES_NGB, NGB_DEV = 33, 3
 RMS_TREE, RMS_TREEPM = 5e-3, 2.5e-2
@@ -218,8 +237,8 @@ MOMENTUM_RATE = 1e-3
 # the port's torch.profiler ranges (not kernels)
 RANGES = ("sph_density", "sph_hydro", "lattice_pass")
 # slices 4a (periodic pure tree, Ewald) and 4b (tabulated TreePM)
-EWALD_STEPS = 3
-TAB_STEPS = 3
+EWALD_STEPS = 2
+TAB_STEPS = 2
 # phase 9: segments of up to SEG_CAP sync points against single stepping;
 # the TreePM box over BOX_SEG_STEPS sync points.  The tolerance is the CPU
 # test's (tests/test_torch_segments.py): 2e-3 on an extent of 4 and a
@@ -251,7 +270,7 @@ SHEET_NGB, SHEET_NGB_DEV = 20, 2
 # (tests/test_parallel.py:183); both in float64: PM_F64_TOL (the float32
 # difference is the FFTs' rounding; tests/test_torch_parallel_pm.py reads
 # 1e-12 on the CPU)
-DIST_STEPS, DIST_BOX_STEPS = 10, 2
+DIST_STEPS, DIST_BOX_STEPS = 5, 2
 # phase 12: multi-device gas on slice 3's box, DIST_GAS_STEPS steps; the
 # first step against phase 6's within JAX's own bounds
 # (tests/test_parallel.py:261-264): density and Hsml rtol 2e-3, hydro 3e-3
@@ -260,6 +279,11 @@ DIST_GAS_STEPS = 2
 CLI_NSIDE = 32
 RMS_DIST, PM_SHARDED_TOL, PM_F64_TOL = 2e-2, 2e-5, 1e-10
 DIST_DEVICE, DIST_LAUNCHES = "cuda", ((1, "nccl"), (2, "gloo"))
+# phase 13: the law matrix.  13a newton_yukawa and 13b bam with the
+# accumulator on slice 1's IC, LAW_STEPS steps each; 13c the stock wiring
+# in slice 4a's box (EWALD_STEPS steps) and 13d three species with gas in a
+# TreePM box, LAW_BOX_STEPS steps
+LAW_STEPS, LAW_BOX_STEPS = 2, 2
 # synthetic K1 instances: label -> (wiring, n_gravs, periodic, TreePM,
 # accumulator); the synthetic box is SYN_BOX wide, TreePM at PMGRID 32
 SYN_BOX = 100.0
@@ -605,13 +629,15 @@ def all_active(sim):
                                                     sim.ti_current))
 
 
-def pass_solver(sim):
+def pass_solver(sim, cfg=None, wiring=None):
     """A solver of its own for whole force passes at the current state, its
     caps settled by one untimed pass; the run's solver is left as it is.
     Each pass updates every particle, more than TreeDomainUpdateFrequency
-    * N, so the next pass rebuilds the tree."""
+    * N, so the next pass rebuilds the tree.  `cfg` and `wiring` replace
+    the run's (phase 13b: the accumulator off)."""
     from ngravs_tpu_torch.ops.solver import GravitySolver
-    solver = GravitySolver(sim.cfg, sim.wiring, sim.force_soft, sim.units.G,
+    solver = GravitySolver(cfg or sim.cfg, wiring or sim.wiring,
+                           sim.force_soft, sim.units.G,
                            hubble=sim.units.hubble, device=sim.device)
     solver.compute(all_active(sim), sim.ti_current, sim.p.n)
     return solver
@@ -759,6 +785,23 @@ def momentum_rate(mass, acc) -> float:
     return float(torch.linalg.norm(ma.sum(0)) / ma.abs().sum())
 
 
+def rel_errs(acc, acc_d):
+    """|a - a_direct| / |a_direct| per particle (no floor above f32's
+    normal range: a BAM target's pull is about 5e-6 of a baryon's on phase
+    13b's IC)."""
+    return torch.linalg.norm(acc - acc_d, dim=1) \
+        / torch.clamp(torch.linalg.norm(acc_d, dim=1), min=1e-30)
+
+
+def instance_launches(label: str, counts: dict, instance: str) -> int:
+    """The launches of K1 instance `instance` (potential on or off) in a
+    path's counts; none is an AssertionError."""
+    n = sum(v for k, v in counts.items() if k.split("/")[0] == instance)
+    if n <= 0:
+        raise AssertionError(f"{label} never launched {instance}: {counts}")
+    return n
+
+
 def check_every_launch(label: str, launched):
     """Each recorded K1 launch against the twin on its own inputs: acc and
     pot within RTOL_TERMS of each target's sum of |terms|, pair counts
@@ -899,8 +942,7 @@ def galaxy_path(dev, card: str):
     acc_d, _ = direct_forces(sim.wiring, p.pos, p.mass, p.grav, fsoft,
                              chunk=1024, want_pot=False)
     acc_d = acc_d * sim.units.G
-    rel = torch.linalg.norm(acc_t - acc_d, dim=1) \
-        / torch.clamp(torch.linalg.norm(acc_d, dim=1), min=1e-12)
+    rel = rel_errs(acc_t, acc_d)
     rms = float(torch.sqrt(torch.mean(rel * rel)))
     ma = p.mass[:, None] * acc_t
     mom_rate = float(torch.linalg.norm(ma.sum(0)) / ma.abs().sum())
@@ -1098,10 +1140,14 @@ def box_path(dev, card: str):
     stamp("box path TreePM pass against the Ewald sum")
     pass_s = timed_passes(sim, solver, card, "TreePM short-range pass")
     pm_ms = cuda_ms(lambda: solver.pm_forces(p), 5)
+    SINGLE["box"]["pm_ms"] = pm_ms
     print(f"PM forces [{card}]: {pm_ms:.2f} ms (median of 5, CUDA events, "
           f"PMGRID {cfg.pmgrid}, interlaced, 2 source gravities); full "
           f"TreePM pass about {pass_s * 1e3 + pm_ms:.1f} ms", flush=True)
-    profile_pass(sim, solver, card, "profiled TreePM pass", with_pm=True)
+    # the targets of an eighth of the box: the profiler's processing of a
+    # whole pass (179k kernels) took about 85 s on the H100's host
+    profile_pass(sim, solver, card, "profiled TreePM pass (x < box/8)",
+                 with_pm=True, slab=0.125)
     stamp("box path timed and profiled passes")
     check_reproducible(sim, solver, cfg, dev, card, run_dir)
     return launches, launched
@@ -1110,7 +1156,7 @@ def box_path(dev, card: str):
 def check_reproducible(sim, solver, cfg, dev, card: str, run_dir: str):
     """Runs on the card repeat bit for bit (the tree's moments and PM's
     mass assignment are fixed-order sums): two full force passes (tree
-    build, walk, PM) from one state; two three-step runs from one state,
+    build, walk, PM) from one state; two two-step runs from one state,
     the run continued and the same steps resumed from a restart file
     written at that state.  Then the tree build and one CIC assignment
     timed in turns with the fixed-order sums and with the plain atomic
@@ -1140,7 +1186,7 @@ def check_reproducible(sim, solver, cfg, dev, card: str, run_dir: str):
     runs = [sim, fresh]
     t0 = time.perf_counter()
     for r in runs:
-        r.run(max_steps=3)
+        r.run(max_steps=2)
     torch.cuda.synchronize()
     fields = ("pos", "vel", "accel", "accel_pm", "old_acc", "ti_endstep")
     if fresh.ti_current != sim.ti_current or not all(
@@ -1148,7 +1194,7 @@ def check_reproducible(sim, solver, cfg, dev, card: str, run_dir: str):
         raise AssertionError("the resumed run differs from the continued "
                              "run")
     print(f"reproducible [{card}]: two full force passes (tree build, walk, "
-          f"PM) bit-identical; 3 steps continued and the same 3 resumed "
+          f"PM) bit-identical; 2 steps continued and the same 2 resumed "
           f"from the restart file: every array bit-identical ({fields}; "
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
 
@@ -1191,12 +1237,14 @@ def check_reproducible(sim, solver, cfg, dev, card: str, run_dir: str):
 # --------------------------------------------------------------------------
 
 def write_gas_box(run_dir: str, seed: int = 42, ns: int | None = None,
-                  name: str = "gas_box") -> str:
+                  name: str = "gas_box", three: bool = False) -> str:
     """2 x ns^3 particles on jittered lattices (jitter 2% of the
     spacing; examples/cosmological_box.py:53-73): gas (type 0, gravity 0)
     with OmegaBaryon / Omega0 of the box mass and IC internal energy u = 1
-    (km/s)^2, dark matter (type 1, gravity 1) half a cell off.  Masses
-    match Omega0; file velocities are Gadget's.  Returns the
+    (km/s)^2, dark matter (type 1, gravity 1) half a cell off.  `three`
+    adds a third lattice a quarter cell off (type 2, gravity 2) and splits
+    the dark matter's mass evenly between types 1 and 2 (phase 13d).
+    Masses match Omega0; file velocities are Gadget's.  Returns the
     parameterfile path."""
     from ngravs_tpu_torch.config import SimulationConfig
     from ngravs_tpu_torch.io.gadget_format import (SnapshotData,
@@ -1211,25 +1259,29 @@ def write_gas_box(run_dir: str, seed: int = 42, ns: int | None = None,
          .reshape(-1, 3) + 0.5) / ns * box
     n = len(g)
     gas = np.mod(g + rng.normal(0, 0.02 * box / ns, g.shape), box)
-    dm = np.mod(g + rng.normal(0, 0.02 * box / ns, g.shape)
-                + 0.5 * box / ns, box)
+    dm = [np.mod(g + rng.normal(0, 0.02 * box / ns, g.shape)
+                 + 0.5 * box / ns, box)]
+    if three:
+        dm.append(np.mod(g + rng.normal(0, 0.02 * box / ns, g.shape)
+                         + 0.25 * box / ns, box))
+    k = 1 + len(dm)
     m_tot = omega0 * 3 * units.hubble ** 2 / (8 * math.pi * units.G) \
         * box ** 3
     m_gas = omega_b / omega0 * m_tot / n
-    m_dm = (omega0 - omega_b) / omega0 * m_tot / n
+    m_dm = (omega0 - omega_b) / omega0 * m_tot / n / len(dm)
     h = SnapshotHeader()
-    h.npart = np.array([n, n, 0, 0, 0, 0], np.int32)
+    h.npart = np.array([n] * k + [0] * (6 - k), np.int32)
     h.npart_total = h.npart.astype(np.uint32)
-    h.mass = np.array([m_gas, m_dm, 0.0, 0.0, 0.0, 0.0])
+    h.mass = np.array([m_gas] + [m_dm] * len(dm) + [0.0] * (6 - k))
     h.time, h.redshift, h.box_size = 0.1, 9.0, box
     h.omega0, h.omega_lambda, h.hubble_param = omega0, 0.7, 0.7
     ic = os.path.join(run_dir, f"{name}.IC")
     write_snapshot(ic, SnapshotData(
-        header=h, pos=np.concatenate([gas, dm]).astype(np.float32),
-        vel=rng.normal(0, 1.0, (2 * n, 3)).astype(np.float32),
-        pid=np.arange(1, 2 * n + 1, dtype=np.uint32),
-        mass=np.repeat(np.array([m_gas, m_dm], np.float32), n),
-        ptype=np.repeat(np.array([0, 1], np.int32), n),
+        header=h, pos=np.concatenate([gas] + dm).astype(np.float32),
+        vel=rng.normal(0, 1.0, (k * n, 3)).astype(np.float32),
+        pid=np.arange(1, k * n + 1, dtype=np.uint32),
+        mass=np.repeat(np.array([m_gas] + [m_dm] * len(dm), np.float32), n),
+        ptype=np.repeat(np.arange(k, dtype=np.int32), n),
         u=np.ones(n, np.float32)))
     soft = box / ns / 30
     return write_param(os.path.join(run_dir, f"{name}.param"), {
@@ -1245,7 +1297,8 @@ def write_gas_box(run_dir: str, seed: int = 42, ns: int | None = None,
         "ErrTolForceAcc": 0.005, "TreeDomainUpdateFrequency": 0.1,
         "DesNumNgb": DES_NGB, "MaxNumNgbDeviation": NGB_DEV,
         "SofteningGas": soft, "SofteningHalo": soft,
-        "GravityGas": 0, "GravityHalo": 1, "GravityDisk": 0,
+        **({"SofteningDisk": soft} if three else {}),
+        "GravityGas": 0, "GravityHalo": 1, "GravityDisk": 2 if three else 0,
         "GravityBulge": 0, "GravityStars": 0, "GravityBndry": 0,
     })
 
@@ -1345,19 +1398,26 @@ def check_sph_passes(sim, card: str):
 
 
 def profile_gas_step(sim, card: str, launched):
-    """One gas step under torch.profiler: CUDA kernels, the device's busy
-    share, and K1's, the density passes' and the hydro pass's shares of
-    device time (the `sph_density` / `sph_hydro` ranges).  The step's K1
-    launches are kept in `launched`."""
+    """One gas force computation (gravity, the density iteration and the
+    hydro pass) for the particles of an eighth of the box (x < box/8:
+    the profiler's processing of a whole step's 227k kernels took most of
+    a minute and a half on the H100's host) under torch.profiler: CUDA
+    kernels, the device's busy share, and K1's, the density passes' and
+    the hydro pass's shares of device time (the `sph_density` /
+    `sph_hydro` ranges).  Its K1 launches are kept in `launched`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from ngravs_tpu_torch.ops.pairwise import pairwise_eval
+    p0 = sim.p
+    sim.p = p0.replace(ti_endstep=torch.where(
+        p0.pos[:, 0] < 0.125 * sim.cfg.box_size, sim.ti_current,
+        torch.clamp(p0.ti_endstep, min=sim.ti_current + 1)))
     sim.solver.pair_eval = record_launches(pairwise_eval, launched)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sim.run(max_steps=1)
+        sim.compute_forces()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     sim.solver.pair_eval = pairwise_eval
@@ -1371,23 +1431,64 @@ def profile_gas_step(sim, card: str, launched):
     k1_ms = sum(dev_us(e) for e in kern if "pairwise_kernel" in e.key) / 1e3
     rng_ms = {k: range_ms(prof, k) for k in ("sph_density", "sph_hydro")}
     if busy_ms <= 0:
-        print(f"profiled gas step [{card}]: {wall_ms:.1f} ms wall; device "
+        print(f"profiled gas force pass (x < box/8) [{card}]: {wall_ms:.1f} "
+              "ms wall; device "
               "time not measured (the profiler recorded none)", flush=True)
         return
     shares = ", ".join(
         f"{k} {v:.2f} ms ({v / busy_ms:.1%})" if v > 0
         else f"{k} not measured (no device time under the range)"
         for k, v in rng_ms.items())
-    print(f"profiled gas step [{card}]: {wall_ms:.1f} ms wall (profiler "
+    print(f"profiled gas force pass (x < box/8) [{card}]: {wall_ms:.1f} "
+          f"ms wall (profiler "
           f"on), {sum(e.count for e in kern)} CUDA kernels, device busy "
           f"{busy_ms:.2f} ms ({busy_ms / wall_ms:.1%} of the wall); K1 "
           f"{k1_ms:.2f} ms ({k1_ms / busy_ms:.1%} of device time); "
           f"{shares}", flush=True)
 
 
+def check_gas_state(sim, card: str, label: str = "gas state"):
+    """Slice 3's gates on the gas after a run: the weighted neighbour
+    count of 99.9 % of the gas within DES_NGB +- NGB_DEV, the median
+    density within 5 % of the mean, the hydro momentum rate below 1e-3 an
+    axis, entropy finite and positive, every signal velocity positive, the
+    particles' state finite."""
+    cfg, n_gas = sim.cfg, sim.n_gas
+    s, gas = sim.sph, slice(0, n_gas)
+    wngb = s.num_ngb[gas]
+    in_window = float(((wngb - DES_NGB).abs() <= NGB_DEV).double().mean())
+    rho_mean = float(sim.p.mass[gas].double().sum()) / cfg.box_size ** 3
+    rho_med = float(s.density[gas].double().median())
+    ma = sim.p.mass[gas, None] * s.hydro_accel[gas]
+    mom = (ma.sum(0).abs() / ma.abs().sum(0).clamp(min=1e-30)).tolist()
+    ent, msv = s.entropy[gas], s.max_signal_vel[gas]
+    print(f"{label} [{card}]: weighted neighbours within {DES_NGB} +- "
+          f"{NGB_DEV} for {in_window:.5%} of the gas (range "
+          f"{float(wngb.min()):.3f}-{float(wngb.max()):.3f}); median "
+          f"density / mean {rho_med / rho_mean:.5f}; hydro momentum rate "
+          f"{', '.join(f'{m:.2e}' for m in mom)}; entropy "
+          f"{float(ent.min()):.4g}-{float(ent.max()):.4g}; signal velocity "
+          f"{float(msv.min()):.4g}-{float(msv.max()):.4g}", flush=True)
+    if not in_window >= 0.999:
+        raise AssertionError(f"neighbour counts in the window for only "
+                             f"{in_window:.4%} of the gas")
+    if not abs(rho_med / rho_mean - 1) < 0.05:
+        raise AssertionError(f"median gas density {rho_med} vs mean "
+                             f"{rho_mean}")
+    if not max(mom) < 1e-3:
+        raise AssertionError(f"hydro momentum rate {mom}")
+    if not (bool(torch.isfinite(ent).all()) and float(ent.min()) > 0):
+        raise AssertionError("entropy not finite and positive")
+    if not float(msv.min()) > 0:
+        raise AssertionError("a gas particle has no signal velocity")
+    for k in ("pos", "vel", "accel", "accel_pm"):
+        if not bool(torch.isfinite(getattr(sim.p, k)).all()):
+            raise AssertionError(f"non-finite {k}: {label}")
+
+
 def gas_path(dev, card: str):
     """Slice 3's path; its K1 launch count and the inputs of every K1
-    launch of its profiled step."""
+    launch of its profiled force computation."""
     from ngravs_tpu_torch.config import read_parameter_file
     from ngravs_tpu_torch.integrate.runner import Simulation
     from ngravs_tpu_torch.ops import pairwise
@@ -1447,38 +1548,7 @@ def gas_path(dev, card: str):
                                 for k, v in sim.cpu_timers.items()),
           flush=True)
 
-    # the gates on the state after the steps
-    s, gas = sim.sph, slice(0, n_gas)
-    wngb = s.num_ngb[gas]
-    in_window = float(((wngb - DES_NGB).abs() <= NGB_DEV).double().mean())
-    rho_mean = float(sim.p.mass[gas].double().sum()) / cfg.box_size ** 3
-    rho_med = float(s.density[gas].double().median())
-    ma = sim.p.mass[gas, None] * s.hydro_accel[gas]
-    mom = (ma.sum(0).abs() / ma.abs().sum(0).clamp(min=1e-30)).tolist()
-    ent, msv = s.entropy[gas], s.max_signal_vel[gas]
-    print(f"gas state [{card}]: weighted neighbours within {DES_NGB} +- "
-          f"{NGB_DEV} for {in_window:.5%} of the gas (range "
-          f"{float(wngb.min()):.3f}-{float(wngb.max()):.3f}); median "
-          f"density / mean {rho_med / rho_mean:.5f}; hydro momentum rate "
-          f"{', '.join(f'{m:.2e}' for m in mom)}; entropy "
-          f"{float(ent.min()):.4g}-{float(ent.max()):.4g}; signal velocity "
-          f"{float(msv.min()):.4g}-{float(msv.max()):.4g}", flush=True)
-    if not in_window >= 0.999:
-        raise AssertionError(f"neighbour counts in the window for only "
-                             f"{in_window:.4%} of the gas")
-    if not abs(rho_med / rho_mean - 1) < 0.05:
-        raise AssertionError(f"median gas density {rho_med} vs mean "
-                             f"{rho_mean}")
-    if not max(mom) < 1e-3:
-        raise AssertionError(f"hydro momentum rate {mom}")
-    if not (bool(torch.isfinite(ent).all()) and float(ent.min()) > 0):
-        raise AssertionError("entropy not finite and positive")
-    if not float(msv.min()) > 0:
-        raise AssertionError("a gas particle has no signal velocity")
-    for k in ("pos", "vel", "accel", "accel_pm"):
-        if not bool(torch.isfinite(getattr(sim.p, k)).all()):
-            raise AssertionError(f"non-finite {k} on the gas path")
-
+    check_gas_state(sim, card)
     check_sph_passes(sim, card)
 
     # restart files: save after the steps, resume into a fresh Simulation
@@ -1510,17 +1580,20 @@ def gas_path(dev, card: str):
 # phase 7: slice 4a, the periodic pure-tree (Ewald) box
 # --------------------------------------------------------------------------
 
-def ewald_path(dev, card: str):
+def ewald_path(dev, card: str, wiring: str = "newton_yukawa",
+               label: str = "Ewald path", instance: str = "K1bc",
+               profile: bool = True):
     """Slice 4a's path: the box path's IC, cosmology, softening and
-    newton_yukawa wiring without PMGRID, the geometric opening criterion
-    (theta 0.5), EWALD_STEPS steps with FORCETEST.  Returns its K1 launch
-    count, the inputs of every launch of a full pass after the steps, and
-    the largest |acc| difference of those launches from the twin."""
+    `wiring` without PMGRID, the geometric opening criterion (theta 0.5),
+    EWALD_STEPS steps with FORCETEST.  Returns its K1 launch count, the inputs
+    of every launch of a full pass after the steps, and the largest |acc|
+    difference of those launches from the twin.  Phase 13c runs it with the
+    stock wiring (one Newton law: K1c)."""
     from ngravs_tpu_torch.config import read_parameter_file
     from ngravs_tpu_torch.integrate.runner import Simulation
     from ngravs_tpu_torch.ops import lattice
     from ngravs_tpu_torch.ops.pairwise import pairwise_eval
-    run_dir = os.path.join(ROOT, "build", "chip_smoke_ewald")
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_ewald_" + wiring)
     os.makedirs(run_dir, exist_ok=True)
     ft_path = os.path.join(run_dir, "forcetest.txt")
     if os.path.exists(ft_path):
@@ -1528,7 +1601,7 @@ def ewald_path(dev, card: str):
     # the geometric criterion: on a near-uniform lattice without a mesh
     # |a_old| is tiny, and the relative one opens almost every node
     cfg = read_parameter_file(write_cosmo_box(run_dir), n_gravs=2,
-                              wiring="newton_yukawa", solver="tree",
+                              wiring=wiring, solver="tree",
                               type_of_opening_criterion=0,
                               force_test=FORCETEST_FRAC)
     lattice.last_generator = None
@@ -1542,14 +1615,12 @@ def ewald_path(dev, card: str):
                              "lattice pass at 2 x 64^3")
     steps, wall, counts = run_path(sim, EWALD_STEPS)
     launches = sum(counts.values())
-    if sum(v for k, v in counts.items() if k.startswith("K1bc")) <= 0:
-        raise AssertionError(f"slice 4a never launched the periodic "
-                             f"multi-law K1 instance: {counts}")
+    instance_launches(label, counts, instance)
     for k in ("pos", "vel", "accel"):
         if not bool(torch.isfinite(getattr(sim.p, k)).all()):
-            raise AssertionError(f"non-finite {k} on slice 4a")
+            raise AssertionError(f"non-finite {k}: {label}")
     mom = momentum_rate(sim.p.mass, sim.p.accel)
-    print(f"Ewald path [{card}]: {steps} steps to a={sim.time:.6g}, "
+    print(f"{label} [{card}]: {steps} steps to a={sim.time:.6g}, "
           f"{sim.num_force_updates} particle-steps in {wall:.2f} s = "
           f"{sim.num_force_updates / wall:.1f} particle-steps/s (FORCETEST "
           f"included), K1 launches {counts}, set-up {init_s:.1f} s (lattice "
@@ -1559,22 +1630,22 @@ def ewald_path(dev, card: str):
           f"{mom:.2e}; host seconds by phase: "
           + ", ".join(f"{k} {v:.2f}" for k, v in sim.cpu_timers.items()),
           flush=True)
-    check_forcetest("Ewald path", ft_path, card, RMS_EWALD, steps, steps)
+    check_forcetest(label, ft_path, card, RMS_EWALD, steps, steps)
     if not mom < MOMENTUM_RATE:
-        raise AssertionError(f"slice 4a momentum rate {mom}")
-    stamp("Ewald path run")
+        raise AssertionError(f"{label}: momentum rate {mom}")
+    stamp(f"{label} run")
 
     launched = []
     solver = pass_solver(sim)
-    stamp("Ewald path: a solver of its own")
     full_force_pass(sim, solver, record_launches(pairwise_eval, launched))
-    stamp("Ewald path: a pass recorded")
-    worst = check_every_launch("Ewald pass", launched)
-    stamp("Ewald path: every launch against the twin")
-    # the targets of an eighth of the box: the profiler's processing of a
-    # whole pass (321k kernels) took about 200 s on the H100's host
-    profile_pass(sim, solver, card, "profiled Ewald pass (x < box/8)",
-                 ranges=("lattice_pass",), slab=0.125)
+    stamp(f"{label}: a pass recorded")
+    worst = check_every_launch(f"{label} pass", launched)
+    stamp(f"{label}: every launch against the twin")
+    if profile:
+        # the targets of a sixteenth of the box: the profiler's processing
+        # of a whole pass (321k kernels) took about 200 s on the H100's host
+        profile_pass(sim, solver, card, "profiled Ewald pass (x < box/16)",
+                     ranges=("lattice_pass",), slab=0.0625)
     sim.close()
     return launches, launched, worst
 
@@ -2026,7 +2097,7 @@ def drifted_pass(sim, drifted, card: str, gates: bool = True):
 def open_box_segments(dev, card: str, seed: int = 7, cap: int = SEG_CAP,
                       gates: bool = True):
     """Phase 9a: slice 1's open box (IC seed `seed`) with segments of up to
-    `cap` sync points against single stepping over MAIN_STEPS sync points,
+    `cap` sync points against single stepping over SEG_STEPS sync points,
     then the drifted-tables pass.  Returns the comparisons."""
     from ngravs_tpu_torch.config import read_parameter_file
     from ngravs_tpu_torch.integrate.runner import Simulation
@@ -2039,7 +2110,7 @@ def open_box_segments(dev, card: str, seed: int = 7, cap: int = SEG_CAP,
         log_dir=os.path.join(run_dir, f"galaxy_{k}"))
     seg, counts, drifted, rows = segment_pair(
         f"segments, open box (seed {seed}, cap {cap})", make_galaxy,
-        MAIN_STEPS, cap, card, False, False, gates)
+        SEG_STEPS, cap, card, False, False, gates)
     if counts.get("K1a", 0) <= 0 or not drifted:
         raise AssertionError("the open box's segments launched no K1a or "
                              "took no drift step")
@@ -2928,6 +2999,234 @@ def report_gas_job(job: dict, per, world: int, backend: str, card: str):
 
 
 # --------------------------------------------------------------------------
+# phase 13: the law matrix
+# --------------------------------------------------------------------------
+
+def rms_by_grav(rel, grav, n_gravs: int) -> list:
+    """The rms of `rel` over each gravity's particles: one taken over all
+    would hide a species whose forces are small."""
+    return [float(torch.sqrt(torch.mean(rel[grav == g] ** 2)))
+            for g in range(n_gravs)]
+
+
+def open_law_path(dev, card: str, label: str, instance: str, wiring: str,
+                  changes: dict, **cfg_kw):
+    """Phases 13a and 13b: slice 1's IC and parameterfile (with the tags
+    `changes`) run with `wiring`, LAW_STEPS steps; then one full tree pass
+    against the direct sweep with the same wiring (N = 1 per particle),
+    its rms by gravity below RMS_TREE, momentum rate below MOMENTUM_RATE;
+    with the accumulator, the same pass with it off must err more on the
+    BAM targets (gravity 1).  Every K1 launch of the pass against the
+    twin.  Returns (launches of `instance`, the pass's launches, the
+    largest |acc| difference from the twin)."""
+    from ngravs_tpu_torch.config import read_parameter_file
+    from ngravs_tpu_torch.integrate.runner import Simulation
+    from ngravs_tpu_torch.models.wiring import build_wiring
+    from ngravs_tpu_torch.ops.direct import direct_forces
+    from ngravs_tpu_torch.ops.pairwise import pairwise_eval
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_" + wiring)
+    os.makedirs(run_dir, exist_ok=True)
+    param = write_galaxy_collision(run_dir)
+    param = rewrite_param(param, param, **changes)
+    cfg = read_parameter_file(param, direct_crossover=1000, tree_depth=12,
+                              n_gravs=2, wiring=wiring, **cfg_kw)
+    sim = Simulation(cfg, device=dev)
+    n = sim.p.n
+    if n != sum(NPART) or sim.solver.uses_direct(n):
+        raise AssertionError(f"{label} must walk the tree at 60k")
+    steps, wall, counts = run_path(sim, LAW_STEPS)
+    n_inst = instance_launches(label, counts, instance)
+    if not bool(torch.isfinite(sim.p.accel).all()):
+        raise AssertionError(f"{label}: non-finite forces")
+    opening = "geometric" if cfg.type_of_opening_criterion == 0 \
+        else "relative"
+    print(f"{label} [{card}]: {steps} steps to t={sim.time:.6g}, "
+          f"{sim.num_force_updates} particle-steps in {wall:.2f} s = "
+          f"{sim.num_force_updates / wall:.1f} particle-steps/s, K1 "
+          f"launches {counts}, opening {opening}, walk caps "
+          f"{sim.solver.fcaps}; host seconds by phase: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sim.cpu_timers.items()),
+          flush=True)
+
+    launched = []
+    solver = pass_solver(sim)
+    acc_t, pass_s = full_force_pass(sim, solver,
+                                    record_launches(pairwise_eval, launched))
+    p = sim.p
+    fsoft = torch.as_tensor(sim.force_soft, device=dev)[p.ptype.long()]
+    acc_d, _ = direct_forces(sim.wiring, p.pos, p.mass, p.grav, fsoft,
+                             chunk=1024, want_pot=False)
+    acc_d = acc_d * sim.units.G
+    rel = rel_errs(acc_t, acc_d)
+    rms = rms_by_grav(rel, p.grav, 2)
+    mom = momentum_rate(p.mass, acc_t)
+    amag = [float(torch.linalg.norm(acc_d[p.grav == g], dim=1).median())
+            for g in range(2)]
+    print(f"{label} force pass [{card}]: {n} targets in {pass_s * 1e3:.1f} "
+          f"ms, rms rel err vs the direct sweep by gravity "
+          + ", ".join(f"{g}: {r:.3e} (max "
+                      f"{float(rel[p.grav == g].max()):.3e}, median |a| "
+                      f"{a:.3e})" for g, (r, a) in enumerate(zip(rms, amag)))
+          + f"; momentum rate {mom:.2e}", flush=True)
+    if not bool(torch.isfinite(acc_t).all()):
+        raise AssertionError(f"{label}: non-finite forces in the pass")
+    if not max(rms) < RMS_TREE:
+        raise AssertionError(f"{label}: tree vs direct rms by gravity {rms}")
+    if not mom < MOMENTUM_RATE:
+        raise AssertionError(f"{label}: momentum rate {mom}")
+    if cfg.ngravs_accumulator:
+        # the same pass with the accumulator off: a node's BAM law then
+        # takes its summed mass as one particle's
+        cfg_off = cfg.replace(ngravs_accumulator=False)
+        acc_off, _ = full_force_pass(
+            sim, pass_solver(sim, cfg_off, build_wiring(cfg_off)),
+            pairwise_eval)
+        rms_off = rms_by_grav(rel_errs(acc_off, acc_d), p.grav, 2)
+        print(f"{label} accumulator off [{card}]: rms rel err by gravity "
+              + ", ".join(f"{g}: {r:.3e}" for g, r in enumerate(rms_off))
+              + f" (on: {rms[0]:.3e}, {rms[1]:.3e})", flush=True)
+        if not rms_off[1] > rms[1]:
+            raise AssertionError(f"{label}: the accumulator made the BAM "
+                                 f"targets no better: {rms} vs off {rms_off}")
+    worst = check_every_launch(f"{label} pass", launched)
+    sim.close()
+    return n_inst, launched, worst
+
+
+def three_species_path(dev, card: str, label: str = "13d three species"):
+    """Phase 13d: slice 3's gas box with a third species (type 2, gravity
+    2), the three_species wiring (Newton / Yukawa / Coulomb+Yukawa on the
+    diagonal, Yukawa across), PMGRID 128 interlaced, LAW_BOX_STEPS steps
+    with FORCETEST on the PM steps (rms < RMS_TREEPM), slice 3's gas-state
+    gates and the momentum rate; PM's nine pair rounds and the SPH passes
+    timed; every K1 launch of a full short-range pass against the twin.
+    Returns (K1bcd launches, the pass's launches, the largest |acc|
+    difference from the twin)."""
+    from ngravs_tpu_torch.config import read_parameter_file
+    from ngravs_tpu_torch.integrate.runner import Simulation
+    from ngravs_tpu_torch.ops import lattice
+    from ngravs_tpu_torch.ops.pairwise import pairwise_eval
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_three")
+    os.makedirs(run_dir, exist_ok=True)
+    ft_path = os.path.join(run_dir, "forcetest.txt")
+    if os.path.exists(ft_path):
+        os.remove(ft_path)
+    cfg = read_parameter_file(
+        write_gas_box(run_dir, name="three_species_box", three=True),
+        pmgrid=BOX_PMGRID, n_gravs=3, wiring="three_species",
+        pm_interlace=True, force_test=FORCETEST_FRAC)
+    lattice.last_generator = None
+    t0 = time.perf_counter()
+    sim = Simulation(cfg, device=dev)
+    init_s = time.perf_counter() - t0
+    tables_by = lattice.last_generator or "from the cache"
+    n, n_gas = sim.p.n, sim.n_gas
+    if n_gas != BOX_NSIDE ** 3 or n != 3 * n_gas \
+            or sim.solver.treepm is None or sim.solver.uses_direct(n) \
+            or len(sim.wiring.unique_laws()) != 3:
+        raise AssertionError(f"{label} must run three laws in TreePM + SPH "
+                             "at 3 x 64^3")
+    # the SPH passes' seconds, the card synchronised around each
+    sph_s = {"density": 0.0, "hydro": 0.0}
+
+    def timed(name):
+        fn = getattr(sim.hydro, name)
+
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            sph_s[name] += time.perf_counter() - t
+            return out
+        return run
+    for name in sph_s:
+        setattr(sim.hydro, name, timed(name))
+    try:
+        steps, wall, counts = run_path(sim, LAW_BOX_STEPS)
+    finally:
+        for name in sph_s:
+            delattr(sim.hydro, name)
+    n_inst = instance_launches(label, counts, "K1bcd")
+    p = sim.p
+    if not (bool(p.accel_pm.abs().max() > 0) and sim.pm_ti_endstep > 0):
+        raise AssertionError(f"{label}: PM never ran")
+    mom = momentum_rate(p.mass, p.accel + p.accel_pm)
+    print(f"{label} [{card}]: {steps} steps to a={sim.time:.6g}, "
+          f"{sim.num_force_updates} particle-steps in {wall:.2f} s = "
+          f"{sim.num_force_updates / wall:.1f} particle-steps/s (FORCETEST "
+          f"included), K1 launches {counts}, SPH passes {sim.hydro.counts}, "
+          f"sph_density {sph_s['density']:.2f} s, sph_hydro "
+          f"{sph_s['hydro']:.2f} s, PM window ({sim.pm_ti_begstep}, "
+          f"{sim.pm_ti_endstep}), gravity momentum rate {mom:.2e}, set-up "
+          f"{init_s:.1f} s (FORCETEST's lattice tables EN={cfg.ngravs_en} "
+          f"{tables_by}); host seconds by phase: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sim.cpu_timers.items()),
+          flush=True)
+    check_forcetest(label, ft_path, card, RMS_TREEPM, 1, steps)
+    check_gas_state(sim, card, f"{label} gas state")
+    if not mom < MOMENTUM_RATE:
+        raise AssertionError(f"{label}: momentum rate {mom}")
+    pm_ms = cuda_ms(lambda: sim.solver.pm_forces(p), 5)
+    box_ms = SINGLE.get("box", {}).get("pm_ms")
+    print(f"{label} PM forces [{card}]: {pm_ms:.2f} ms for "
+          f"{cfg.n_gravs ** 2} (source, receiver) rounds (median of 5, CUDA "
+          f"events); slice 2's {cfg.pmgrid} mesh, 4 rounds: "
+          + (f"{box_ms:.2f} ms" if box_ms else "not run"), flush=True)
+    stamp(f"{label} run")
+
+    launched = []
+    solver = pass_solver(sim)
+    full_force_pass(sim, solver, record_launches(pairwise_eval, launched))
+    worst = check_every_launch(f"{label} pass", launched)
+    sim.close()
+    return n_inst, launched, worst
+
+
+def law_matrix(dev, card: str, path_counts: dict) -> list:
+    """Phase 13: the four configurations, each launching its K1 instance on
+    a real path: 13a newton_yukawa in the open box (BASELINE config 2,
+    K1b), 13b bam with the accumulator (the halo as BAM dark matter, K1b
+    with the count row), 13c the stock wiring in the periodic pure-tree box
+    (K1c), 13d three species with gas in the TreePM box (BASELINE config 5,
+    K1bcd at N_GRAVS=3).  Returns their kernel entries; adds each
+    instance's launches to `path_counts`."""
+    entries, launches = [], {}
+
+    def record(key, what, n, launched, worst):
+        batch = check_largest_launch(f"kernel ({key} batch)", launched)
+        entries.append(kernel_entry(f"{batch['name']} (phase {key}, {what})",
+                                    n, batch, [batch["max_abs_err"], worst]))
+        path_counts[batch["name"]] = path_counts.get(batch["name"], 0) + n
+        launches[batch["name"]] = n
+
+    record("13a", "newton_yukawa open box, 60k", *open_law_path(
+        dev, card, "13a newton_yukawa", "K1b", "newton_yukawa", {}))
+    stamp("phase 13a (newton_yukawa)")
+    # the halo as BAM dark matter (arXiv:1408.2702), the rest baryons.  The
+    # geometric criterion: the relative one compares a node with a BAM
+    # target's |a_old|, about 5e-6 of a baryon's, and opens every node for
+    # its subgroup, so no BAM target would take a node
+    record("13b", "bam with the accumulator, halo as BAM, 60k",
+           *open_law_path(dev, card, "13b bam accumulator", "K1b+count",
+                          "bam", {"GravityHalo": 1, "GravityDisk": 0,
+                                  "TypeOfOpeningCriterion": 0},
+                          ngravs_accumulator=True))
+    stamp("phase 13b (bam, accumulator)")
+    n, launched, worst = ewald_path(dev, card, wiring="newton",
+                                    label="13c stock periodic",
+                                    instance="K1c", profile=False)
+    record("13c", "stock newton periodic pure tree, 2 x 64^3", n, launched,
+           worst)
+    stamp("phase 13c (stock periodic box)")
+    record("13d", "three_species TreePM + SPH, 3 x 64^3",
+           *three_species_path(dev, card))
+    stamp("phase 13d (three species)")
+    print(f"law matrix K1 launches {launches}", flush=True)
+    return entries
+
+
+# --------------------------------------------------------------------------
 
 def kernel_entry(name: str, launches: int, nums: dict, errs) -> dict:
     return {"name": name, "route": "cuda",
@@ -3089,6 +3388,8 @@ def main(argv=None) -> int:
     if want(12):
         dist.update(distributed_gas_paths(card))
     entries += dist_entries(dist)
+    if want(13):
+        entries += law_matrix(dev, card, path_counts)
     for case, rep in synthetic.items():
         for want_pot, r in rep.items():
             entries.append(kernel_entry(

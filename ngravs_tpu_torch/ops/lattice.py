@@ -305,22 +305,24 @@ def lattice_tables_for(kind: str, en: int, params: dict | None = None,
     path = os.path.join(_cache_dir(), f"lattice_spc_table_{en}_{tag}.npy")
     if cache and os.path.exists(path):
         return np.load(path)
-    if kind == "newton":
-        f, p = _generate("newton", en, 0.0, native)
-        p[0] = NEWTON_MADELUNG
-    elif kind == "yukawa":
-        ym = float(params["ym"])
-        f, p = _generate("yukawa", en, ym, native)
-        p[0] = yukawa_madelung(ym)
-    elif kind == "coloyuk":
-        ym = float(params["ym"])
-        fn, pn = _generate("newton", en, 0.0, native)
-        fy, py = _generate("yukawa", en, ym, native)
-        f, p = fy + fn, py + pn
-        p[0] = NEWTON_MADELUNG + yukawa_madelung(ym)
+    if kind == "coloyuk":
+        # the sum of the Newton and the Yukawa lattice, Madelung terms
+        # included: from their cached tables where they are
+        out = lattice_tables_for("newton", en, cache=cache, native=native) \
+            + lattice_tables_for("yukawa", en, params, cache=cache,
+                                 native=native)
     else:
-        raise ValueError(f"unknown lattice kind {kind!r}")
-    out = np.concatenate([f, p[:, None]], axis=1).reshape(en1, en1, en1, 4)
+        if kind == "newton":
+            f, p = _generate("newton", en, 0.0, native)
+            p[0] = NEWTON_MADELUNG
+        elif kind == "yukawa":
+            ym = float(params["ym"])
+            f, p = _generate("yukawa", en, ym, native)
+            p[0] = yukawa_madelung(ym)
+        else:
+            raise ValueError(f"unknown lattice kind {kind!r}")
+        out = np.concatenate([f, p[:, None]], axis=1).reshape(en1, en1, en1,
+                                                              4)
     if cache:
         os.makedirs(_cache_dir(), exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".npy", dir=_cache_dir())

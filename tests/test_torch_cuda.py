@@ -5,7 +5,9 @@ evaluation on the card against the CPU; runs on the card that repeat bit
 for bit (two force passes, two three-step runs, a resume); segments on
 the card: the direct path's bit for bit its single stepping, the tree
 path's within the CPU test's tolerance of it, and the table drift equal
-to the CPU's; and one rank over NCCL: the collisionless step against the
+to the CPU's; the bam wiring with the accumulator and the three_species
+TreePM box, one force pass each on the card against the CPU; and one rank
+over NCCL: the collisionless step against the
 single device, the replicated and the LET gas steps against the same
 steps on the CPU.
 
@@ -373,6 +375,84 @@ def test_box_path_on_cuda_matches_cpu(cuda):
     assert torch.equal(sims[0].p.ti_endstep, sims[1].p.ti_endstep.cpu())
     assert pairwise_eval.launches > before
     assert any(k.startswith("K1bcd") for k in pairwise_eval.counts)
+
+
+def test_bam_accumulator_pass_on_cuda_matches_cpu(cuda):
+    """chip_smoke's phase 13b configuration at 4,096 particles: the bam
+    wiring with the accumulator, a sixth of the particles (type 1) BAM
+    dark matter, the geometric criterion, one force pass on the card
+    (K1b+count) and on the CPU: each particle's acceleration within 1e-5
+    of its own magnitude (a BAM target's is below 1e-3 of a baryon's)."""
+    n = 4096
+    pos, mass, _ = _clumps(n, seed=5)
+    rng = np.random.default_rng(5)
+    ptype = np.where(rng.uniform(size=n) < 1 / 6, 1, 2)
+    cfg = SimulationConfig(
+        gravity_constant_internal=1.0, softening=(0.05,) * 6,
+        max_size_timestep=0.01, time_bet_snapshot=0.0,
+        time_of_first_snapshot=1e30, time_bet_statistics=0.0, n_gravs=2,
+        type_to_grav=(0, 1, 0, 0, 0, 0), wiring="bam",
+        ngravs_accumulator=True, solver="tree", tree_depth=9,
+        type_of_opening_criterion=0)
+    sims = [Simulation(cfg, particles=Particles.create(
+        pos, np.zeros_like(pos), mass * 50 / n, np.arange(n), ptype,
+        cfg.type_to_grav, device=d), log_dir="") for d in ("cpu", cuda)]
+    before = pairwise_eval.counts.get("K1b+count", 0)
+    for s_ in sims:
+        s_.compute_forces()
+    assert pairwise_eval.counts.get("K1b+count", 0) > before
+    a0, a1 = sims[0].p.accel, sims[1].p.accel.cpu()
+    bam = sims[0].p.grav == 1
+    assert bool(bam.any()) and float(a0[bam].norm(dim=1).max()) \
+        < 1e-3 * float(a0[~bam].norm(dim=1).median())
+    assert bool((torch.linalg.norm(a1 - a0, dim=1)
+                 <= 1e-5 * torch.linalg.norm(a0, dim=1)).all())
+
+
+def test_three_species_treepm_pass_on_cuda_matches_cpu(cuda):
+    """chip_smoke's phase 13d law matrix at 3 x 16^3: three jittered
+    lattices (types 1-3 -> gravities 0-2), the three_species wiring, TreePM
+    at PMGRID 64; one full force pass on the card (K1bcd, nine PM rounds)
+    and on the CPU: the short-range accelerations within 1e-5 of their
+    largest value, the PM ones within 1e-4 (the FFTs sum in other
+    orders)."""
+    import math
+    from ngravs_tpu_torch.units import set_units
+    rng = np.random.default_rng(13)
+    ns, box = 16, 10000.0
+    g = (np.stack(np.meshgrid(*[np.arange(ns)] * 3, indexing="ij"), -1)
+         .reshape(-1, 3) + 0.5) / ns * box
+    n = len(g)
+    pos = np.concatenate([
+        np.mod(g + rng.normal(0, 0.02 * box / ns, g.shape) + off * box / ns,
+               box) for off in (0.0, 0.5, 0.25)]).astype(np.float32)
+    vel = rng.normal(0, 1.0, pos.shape).astype(np.float32)
+    ptype = np.repeat([1, 2, 3], n)
+    cfg = SimulationConfig(
+        comoving_integration=True, omega0=1.0, omega_lambda=0.0,
+        omega_baryon=0.1, hubble_param=1.0, time_begin=0.1, time_max=0.2,
+        periodic=True, box_size=box, pmgrid=64, softening=(20.0,) * 6,
+        max_size_timestep=0.02, n_gravs=3, type_to_grav=(0, 0, 1, 2, 0, 0),
+        wiring="three_species", tree_depth=7, tree_bucket_size=16,
+        time_bet_snapshot=0.0, time_of_first_snapshot=1e30,
+        time_bet_statistics=0.0)
+    u = set_units(cfg)
+    m_tot = 3 * u.hubble ** 2 / (8 * math.pi * u.G) * box ** 3
+    mass = np.full(3 * n, m_tot / (3 * n))
+    sims = [Simulation(cfg, particles=Particles.create(
+        pos, vel, mass, np.arange(3 * n), ptype, cfg.type_to_grav,
+        device=d), log_dir="") for d in ("cpu", cuda)]
+    assert len(sims[1].wiring.unique_laws()) == 3
+    before = pairwise_eval.counts.copy()
+    for s_ in sims:
+        s_.compute_forces(full=True)
+    assert any(v > before.get(k, 0) for k, v in pairwise_eval.counts.items()
+               if k.startswith("K1bcd"))
+    for name, rtol in (("accel", 1e-5), ("accel_pm", 1e-4)):
+        a0 = getattr(sims[0].p, name)
+        a1 = getattr(sims[1].p, name).cpu()
+        assert float(a0.abs().max()) > 0
+        assert float((a0 - a1).abs().max()) <= rtol * float(a0.abs().max())
 
 
 # --------------------------------------------------------------------------
