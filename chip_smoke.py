@@ -18,7 +18,7 @@ Phases (any failure raises and exits non-zero):
     and pot within 1e-5 of each target's sum of |terms| (the two sum in
     different orders), pair counts equal, two launches bit-identical; the
     launch plan (`launch_plan`: lanes P, cluster C, tile, stages, shared
-    memory), median times and the bound;
+    memory), median times (20 launches, the twin's 3) and the bound;
  4. slice 1, the open-box path: a synthetic GalaxyCollision-shaped IC (60k
     particles of types 1-5 as BASELINE.md counts them, two Plummer spheres
     on a collision orbit, disk -> gravity 1) written in format 1 with its
@@ -37,8 +37,8 @@ Phases (any failure raises and exits non-zero):
     wiring, written as a format-1 IC and parameterfile and run as
     `read_parameter_file(..., pmgrid=128, n_gravs=2,
     wiring="newton_yukawa", pm_interlace=True)` -> `Simulation(cfg)` ->
-    `run(max_steps=2)` with FORCETEST on 2,048 particles (2^-8 of them)
-    on each PM step: K1 (the TreePM multi-law instance) and PM must run,
+    `run(max_steps=BOX_STEPS)` with FORCETEST on 2,048 particles (2^-8
+    of them) on each PM step: K1 (the TreePM multi-law instance) and PM must run,
     forces finite, every step's FORCETEST rms relative error < 2.5e-2;
     then one full TreePM pass (PM + short-range walk)
     on every particle, checked on 2,048 sampled targets against the
@@ -46,8 +46,9 @@ Phases (any failure raises and exits non-zero):
     error < 2.5e-2), timed with the kernel and with the twin, PM alone
     timed, the pass for an eighth of the box profiled; then the run
     repeats bit for bit (the tree's moments and PM's mass assignment are
-    fixed-order sums): two full force passes from one state, and two
-    steps continued against the same two resumed from a restart file;
+    fixed-order sums): two full force passes from one state, and
+    REPRO_STEPS steps continued against the same resumed from a restart
+    file;
     the tree build and one CIC assignment timed in turns against the
     atomic `index_add_` they replaced; then K1 against the twin on that
     pass's largest launch, as for slice 1;
@@ -74,8 +75,8 @@ Phases (any failure raises and exits non-zero):
     launch;
  7. slice 4a, the periodic pure-tree (Ewald) box: slice 2's IC, cosmology,
     softening and newton_yukawa wiring without PMGRID, the geometric
-    opening criterion (theta 0.5), `run(max_steps=2)` with FORCETEST on
-    2,048 particles each step: K1 (the periodic multi-law instance, K1bc)
+    opening criterion (theta 0.5), `run(max_steps=EWALD_STEPS)` with
+    FORCETEST on 2,048 particles each step: K1 (the periodic multi-law instance, K1bc)
     must run beside the lattice pass; every step's FORCETEST rms relative
     error < 0.25 (the reference walk's error on this near-uniform IC; see
     RMS_EWALD), momentum rate < 1e-3; every
@@ -86,13 +87,14 @@ Phases (any failure raises and exits non-zero):
  8. slice 4b, the TreePM box with the tabulated transition: slice 2's box
     with the yukawa preset (a NoneLaw diagonal, so no closed form: every
     pair takes the tabulated evaluation and K1 is not launched), PMGRID
-    128 interlaced, relative opening, `run(max_steps=2)` with FORCETEST on
-    the PM steps: rms relative error < 3e-2 (tests/test_treepm.py:223),
+    128 interlaced, relative opening, `run(max_steps=TAB_STEPS)` with
+    FORCETEST on the PM steps: rms relative error < 3e-2 (tests/test_treepm.py:223),
     momentum rate < 1e-3; the run's largest tabulated evaluation on the
     card against the CPU within 1e-5 of each target's sum of |terms|;
- 9. segments (`Simulation(cfg, segment_steps=K)`) against single stepping
-    from the same IC, in lockstep (the single-stepped run catches up after
-    each `step()` call of the segmented one): slice 1's open box for 30
+ 9. (run after phase 4, while the lattice tables are made) segments
+    (`Simulation(cfg, segment_steps=K)`) against single stepping from the
+    same IC, in lockstep (the single-stepped run catches up after
+    each `step()` call of the segmented one): slice 1's open box for 16
     sync points in segments of up to 16, and the box path's TreePM box
     (FORCETEST off) for 3 sync points, the last two one segment.  Gates:
     the same sync points (and PM window); positions over the extent and
@@ -110,7 +112,7 @@ Phases (any failure raises and exits non-zero):
     velocities zero, positions in the box, the reversed forces finite,
     the counts-in-cells variance on 32^3 cells (mean 8) below its start
     (printed each step), K1cd launched and its largest launch against the
-    twin; (b) FLEXSTEPS and PSEUDOSYMMETRIC on slice 1's IC, 10 steps
+    twin; (b) FLEXSTEPS and PSEUDOSYMMETRIC on slice 1's IC, 5 steps
     each: step ends off their own grid and 1 <= present_min_step <=
     present_max_step; every step a power of two and aphys_old finite and
     positive somewhere; K1a launched, forces finite; (c) TWODIMS with
@@ -138,8 +140,11 @@ Phases (any failure raises and exits non-zero):
     launches by rank, the host syncs of a step, the bytes each rank sends
     in collectives in a step, the LET rows received.  The kernels line
     has an entry of its own for each instance, IC and step of phase 11.
-    Then `python -m ngravs_tpu_torch.run <param> --devices 2 --backend
-    gloo` on a short open-box run must end with 0;
+    Phases 11 and 12 share one launch a world size (phase 11's
+    configurations, then phase 12's).  After both, `python -m
+    ngravs_tpu_torch.run <param> --devices 2 --backend gloo` on a short
+    open-box run must end with 0 (beside phase 12's run of the command
+    line: the two start at once);
 12. multi-device gas: slice 3's gas box (phase 6's IC, FORCETEST on each
     PM step, u turned into entropy by a density pass before the first
     step, from phase 6's first smoothing length) through
@@ -159,7 +164,7 @@ Phases (any failure raises and exits non-zero):
     LET gravity rows, density iterations, cand_cap, the ghost-cap growths
     and margin reruns, host syncs, collective bytes and the SPH passes'
     seconds of the last step.  Then a 2-step `--devices 2 --backend gloo`
-    gas run through the command line (the scheme at 2 x 32^3, periodic
+    gas run through the command line, beside phase 11's, (the scheme at 2 x 32^3, periodic
     pure tree: a parameterfile cannot ask for PMGRID) must end with 0 and
     write a snapshot with its gas blocks;
 13. the law matrix: four configurations, each with its K1 counts from 0
@@ -178,7 +183,26 @@ Phases (any failure raises and exits non-zero):
     with a third lattice (type 2, gravity 2), 3 x 64^3, PMGRID 128
     interlaced, LAW_BOX_STEPS steps, K1bcd at N_GRAVS=3, FORCETEST rms <
     2.5e-2 and slice 3's gas-state gates; PM's nine pair rounds and the
-    SPH passes timed.
+    SPH passes timed;
+14. the potential, inside each path after its steps, on its final state:
+    the K1 counts from 0, one `sim.update_full_potential()` (the walk with
+    the potential, plus PM's potential under PMGRID), which must launch
+    the path's K1 instance with the potential: K1a/pot (slice 1), K1b/pot
+    (13a), K1b+count/pot (13b), K1bc/pot (slice 4a), K1c/pot (13c),
+    K1bcd/pot (slice 2) and K1cd/pot (the glass box); slice 4b, which
+    launches no K1, runs the tabulated potential.  The potential finite,
+    one energy.txt line (`energy_statistics`) with a finite Epot, every
+    K1 launch of the pass against the twin (pot included) and the largest
+    timed.  Against the direct sum in float64: on the open boxes the rms
+    over each gravity's particles of |dpot| / |pot_direct| < 1e-3 (13b's
+    BAM targets printed); in the periodic boxes the sum with the lattice
+    correction on 2,048 targets, per gravity d = pot - pot_direct, mean(d)
+    printed and rms(d - mean d) / rms(pot_direct) below the path's bound
+    (RMS_POT_*: 1.5 times the JAX package's value on the CPU, see there).
+    Phase 11's 2-rank LET box runs with OutputPotential: every rank
+    launches K1bcd/pot, the first step's gathered potential meets the box
+    path's periodic bound, and the multi-file snapshot's POT block reads
+    back equal to `gather_ordered()`.
 
 `python3 chip_smoke.py --phases 6,12` runs the named phases alone (phase
 12 needs phase 6's run).  The line before the last is the card's name and
@@ -197,6 +221,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -205,16 +230,18 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B, G, S = 128, 64, 4096          # the fused walk's pair-kernel shapes
 RTOL_TERMS = 1e-5                # of each target's sum of |terms|
+SCALE_SLICE = 4096               # sources a slice in term_scales
 MAIN_STEPS = 10                  # slice 1's path
-SEG_STEPS = 30                   # phase 9a's sync points
+SEG_STEPS = 16                   # phase 9a's sync points
 # BASELINE.md:54 — GalaxyCollision.IC per-type counts (no gas)
 NPART = (0, 10000, 20000, 10000, 10000, 10000)
 # the box path
 BOX_NSIDE = 64                   # 2 x 64^3 particles
 BOX_SIZE = 50000.0               # kpc/h
 BOX_PMGRID = 128
-BOX_STEPS = 2
+BOX_STEPS = 1
 ORACLE_TARGETS = 2048
+REPRO_STEPS = 1                  # the restart's bit-for-bit check
 # the gas path
 GAS_STEPS = 2
 GAS_SAMPLE_BLOCKS = 64
@@ -237,8 +264,8 @@ MOMENTUM_RATE = 1e-3
 # the port's torch.profiler ranges (not kernels)
 RANGES = ("sph_density", "sph_hydro", "lattice_pass")
 # slices 4a (periodic pure tree, Ewald) and 4b (tabulated TreePM)
-EWALD_STEPS = 2
-TAB_STEPS = 2
+EWALD_STEPS = 1
+TAB_STEPS = 1
 # phase 9: segments of up to SEG_CAP sync points against single stepping;
 # the TreePM box over BOX_SEG_STEPS sync points.  The tolerance is the CPU
 # test's (tests/test_torch_segments.py): 2e-3 on an extent of 4 and a
@@ -260,7 +287,7 @@ SEG_FORCE_MAX, MAX_TREE = 1.5, 0.1
 # phase 10: MAKEGLASS at 64^3 (counts in 32^3 cells, mean 8), FLEXSTEPS and
 # PSEUDOSYMMETRIC on slice 1's IC, a TWODIMS LONG_X 2 gas sheet
 GLASS_NSIDE, GLASS_CELLS, GLASS_STEPS = 64, 32, 5
-MODE_STEPS = 10
+MODE_STEPS = 5
 SHEET_NX, SHEET_NY, SHEET_STEPS = 256, 128, 3
 SHEET_NGB, SHEET_NGB_DEV = 20, 2
 # phase 11: multi-device runs, 1 rank over NCCL and 2 over gloo on the one
@@ -270,12 +297,12 @@ SHEET_NGB, SHEET_NGB_DEV = 20, 2
 # (tests/test_parallel.py:183); both in float64: PM_F64_TOL (the float32
 # difference is the FFTs' rounding; tests/test_torch_parallel_pm.py reads
 # 1e-12 on the CPU)
-DIST_STEPS, DIST_BOX_STEPS = 5, 2
+DIST_STEPS, DIST_BOX_STEPS = 3, 1
 # phase 12: multi-device gas on slice 3's box, DIST_GAS_STEPS steps; the
 # first step against phase 6's within JAX's own bounds
 # (tests/test_parallel.py:261-264): density and Hsml rtol 2e-3, hydro 3e-3
 # of its largest |a|, gravity rms RMS_DIST
-DIST_GAS_STEPS = 2
+DIST_GAS_STEPS = 1
 CLI_NSIDE = 32
 RMS_DIST, PM_SHARDED_TOL, PM_F64_TOL = 2e-2, 2e-5, 1e-10
 DIST_DEVICE, DIST_LAUNCHES = "cuda", ((1, "nccl"), (2, "gloo"))
@@ -283,7 +310,51 @@ DIST_DEVICE, DIST_LAUNCHES = "cuda", ((1, "nccl"), (2, "gloo"))
 # accumulator on slice 1's IC, LAW_STEPS steps each; 13c the stock wiring
 # in slice 4a's box (EWALD_STEPS steps) and 13d three species with gas in a
 # TreePM box, LAW_BOX_STEPS steps
-LAW_STEPS, LAW_BOX_STEPS = 2, 2
+LAW_STEPS, LAW_BOX_STEPS = 2, 1
+# phase 14: update_full_potential on each path's final state against the
+# direct sum (float64).  Open boxes: the rms over each gravity's particles
+# of |dpot| / |pot_direct| below RMS_POT_OPEN (the JAX bound,
+# tests/test_tree.py:84; 13b's BAM targets below RMS_TREE, the bound of
+# their forces).  Periodic boxes, on ORACLE_TARGETS targets against the sum
+# with the lattice correction: per gravity d = pot - pot_direct, gated by
+# rms(d - mean d) / rms(pot_direct).  The mean is removed because the JAX
+# package has it too (tests/test_torch_potential.py: the port's mean
+# equals JAX's): a constant a gravity, the long-range part's self term
+# under TreePM, the Madelung term of a comoving box.  The bounds come from
+# the JAX package on the CPU (tools/port_studies/potential_bounds.py, the
+# same IC and settings at 2 x NSIDE^3, PMGRID 2 NSIDE; the measure depends
+# on NSIDE alone): on the near-uniform lattices the pure-tree and the
+# tabulated boxes' measure grows with NSIDE (the potential is a small
+# remainder of the lattice's terms, the walk's far-field error is not),
+# so each bound is 1.5 times the largest of three estimates of the value
+# at side 64: the largest value measured (over gravities and sides), the
+# side-32 value times its ratio to the side-16 one (64 is the next
+# doubling), and the largest side's value carried to 64 by the power law
+# through the running maxima at the two largest sides.  JAX's values, the
+# larger gravity's, by side (--card-density; glass 20 without it):
+#   box (slice 2)    12: 4.527e-4  16: 5.108e-4  32: 3.805e-4
+#   tab (slice 4b)   12: 2.673e-9  16: 4.986e-8  24: 8.618e-7  32: 2.064e-6
+#   ewald (4a)       12: 7.465e-3  16: 2.308e-2  20: 3.306e-2  24: 4.074e-3
+#                    32: 4.956e-2  40: 7.177e-2
+#   stock (13c)      12: 3.424e-2  16: 1.336e-1  20: 2.869e-1  24: 4.304e-2
+#                    32: 8.275e-1  40: 1.891
+#   glass (10a)      16: 2.268e-3  20: 2.335e-3  32: 2.306e-3
+
+
+def _carried(v_a: float, v_b: float, side_a: int, side_b: int) -> float:
+    """v_b carried from side_b to side 64 by the power law through
+    (side_a, v_a) and (side_b, v_b)."""
+    return v_b * (64 / side_b) ** (math.log(v_b / v_a)
+                                   / math.log(side_b / side_a))
+
+
+RMS_POT_OPEN = 1e-3
+RMS_POT_BOX = 1.5 * 5.108e-4                        # the largest, side 16
+RMS_POT_TABULATED = 1.5 * 2.064e-6 * 2.064e-6 / 4.986e-8   # 16 -> 32
+RMS_POT_EWALD = {
+    "newton_yukawa": 1.5 * _carried(4.956e-2, 7.177e-2, 32, 40),
+    "newton": 1.5 * _carried(8.275e-1, 1.891, 32, 40)}
+RMS_POT_GLASS = 1.5 * 2.306e-3 * 2.306e-3 / 2.268e-3       # 16 -> 32
 # synthetic K1 instances: label -> (wiring, n_gravs, periodic, TreePM,
 # accumulator); the synthetic box is SYN_BOX wide, TreePM at PMGRID 32
 SYN_BOX = 100.0
@@ -310,6 +381,8 @@ OPS_TPM = {1: (23, 17), 3: (67, 22), 4: (104, 49)}
 
 
 T_START = time.perf_counter()
+# phase 14's kernel entries, /pot launches by instance and seconds
+PHASE14 = {"entries": [], "counts": {}, "seconds": 0.0}
 # the single-device runs' numbers phase 11 compares with (phases 4 and 5)
 SINGLE = {}
 
@@ -418,12 +491,14 @@ def kernel_inputs(dev, seed: int = 0, n_gravs: int = 1, box: float = 0.0,
 
 
 def term_scales(targets, sp, n_src, wiring=None, box_size=0.0,
-                accumulator=None, treepm_asmth=0.0):
+                accumulator=None, treepm_asmth=0.0, with_ops=True):
     """Per target: the sums over valid pairs of |fac*dx|, |fac*dy|,
     |fac*dz| and |pot term| (the scale of each sum, for the tolerance).
     Also the operations the kernel needs on these inputs (potential off,
     on), from the OPS tables: each valid pair by its law and, under TreePM,
-    by whether it lies inside the cut."""
+    by whether it lies inside the cut.  Counting them reads the card back
+    a few times a slice of sources; without `with_ops` nothing is read
+    back and the operations are None."""
     from ngravs_tpu_torch.models.laws import Newtonian
     from ngravs_tpu_torch.ops.pairwise import (FCOUNT, FMASS, FSOFT, FX, FY,
                                                FZ, IGID, IGRAV, law_entry,
@@ -438,10 +513,10 @@ def term_scales(targets, sp, n_src, wiring=None, box_size=0.0,
     col = lambda k: targets[k].reshape(nb, g, 1)
     out = torch.zeros(nb * g, 4, device=sp.device)
     ops = [0.0, 0.0]
-    for c0 in range(0, s, 512):
-        cs = slice(c0, c0 + 512)
+    for c0 in range(0, s, SCALE_SLICE):
+        cs = slice(c0, c0 + SCALE_SLICE)
         sgid = sp[:, IGID, cs].view(torch.int32)[:, None, :]
-        live = (torch.arange(c0, min(c0 + 512, s),
+        live = (torch.arange(c0, min(c0 + SCALE_SLICE, s),
                              device=sp.device)[None, None, :]
                 < n_src.reshape(nb, 1, 1))
         valid = live & (sgid != -1) & (sgid != col("gid")) & (col("gid") >= 0)
@@ -457,16 +532,19 @@ def term_scales(targets, sp, n_src, wiring=None, box_size=0.0,
         sg = sp[:, IGRAV, cs].view(torch.int32)[:, None, :]
         fac = torch.zeros_like(r)
         pot = torch.zeros_like(r)
-        base = float(valid.sum()) * (
-            OPS_BASE + (OPS_PERIODIC if box_size > 0 else 0)
-            + (OPS_TPM_U if inv2a else 0))
-        ops = [ops[0] + base, ops[1] + base]
+        if with_ops:
+            base = float(valid.sum()) * (
+                OPS_BASE + (OPS_PERIODIC if box_size > 0 else 0)
+                + (OPS_TPM_U if inv2a else 0))
+            ops = [ops[0] + base, ops[1] + base]
         for law, slots in groups:
             mk = torch.zeros_like(valid)
             for i, j in slots:
                 mk = mk | ((col("grav") == i) & (sg == j))
             f, p = law_factors(law, col("mass"), sm, r2, r, h, n, True, inv2a)
             fac, pot = torch.where(mk, f, fac), torch.where(mk, p, pot)
+            if not with_ops:
+                continue
             kind = law_entry(law)[0]
             lf, lp = OPS_LAW[kind]
             npair = float((mk & valid).sum())
@@ -480,7 +558,7 @@ def term_scales(targets, sp, n_src, wiring=None, box_size=0.0,
             [torch.where(valid, (fac * x).abs(), 0.).sum(-1) for x in d]
             + [torch.where(valid, pot.abs(), 0.).sum(-1)],
             dim=-1).reshape(nb * g, 4)
-    return out, ops
+    return out, (ops if with_ops else None)
 
 
 def kernel_bound(targets, sp, n_src, flags, ops: float):
@@ -543,7 +621,7 @@ def check_kernel(label: str, targets, sp, n_src, modes, kw=None):
         ms = cuda_ms(lambda: pairwise_eval(targets, sp, n_src, want_pot,
                                            **kw), 20)
         plain_ms = cuda_ms(lambda: pairwise_eval_torch(targets, sp, n_src,
-                                                       want_pot, **kw), 5)
+                                                       want_pot, **kw), 3)
         pairs = int(torch.sum(nia_t))
         bound_ms, bound_by = kernel_bound(targets, sp, n_src, flags,
                                           ops[1 if want_pot else 0])
@@ -812,7 +890,7 @@ def check_every_launch(label: str, launched):
     worst = 0.0
     names = set()
     for targets, sp, n_src, want_pot, kw in launched:
-        scale, _ = term_scales(targets, sp, n_src, **kw)
+        scale, _ = term_scales(targets, sp, n_src, with_ops=False, **kw)
         acc, pot, nia = pairwise_eval(targets, sp, n_src, want_pot, **kw)
         acc_t, pot_t, nia_t = pairwise_eval_torch(targets, sp, n_src,
                                                   want_pot, **kw)
@@ -957,8 +1035,30 @@ def galaxy_path(dev, card: str):
           f"{mom_rate:.2e}", flush=True)
     timed_passes(sim, solver, card, "force pass")
     profile_pass(sim, solver, card, "profiled pass")
+    potential_pass(sim, card, "slice 1", "K1a/pot",
+                   {"open": {0: RMS_POT_OPEN, 1: RMS_POT_OPEN}})
     sim.close()
     return launches, launched
+
+
+def prebuild_lattice_tables():
+    """The lattice tables of slice 2's box and wiring at its EN into the
+    table cache, timed; every periodic path then loads them (the cache
+    keys a table by law and EN, not by box)."""
+    from ngravs_tpu_torch.config import read_parameter_file
+    from ngravs_tpu_torch.models.wiring import build_wiring
+    from ngravs_tpu_torch.ops import lattice
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_tables")
+    os.makedirs(run_dir, exist_ok=True)
+    cfg = read_parameter_file(write_cosmo_box(run_dir), n_gravs=2,
+                              wiring="newton_yukawa")
+    t0 = time.perf_counter()
+    lattice.build_lattice_tables(build_wiring(cfg), cfg.ngravs_en,
+                                 cfg.box_size)
+    print(f"lattice tables EN={cfg.ngravs_en} (Newton, Yukawa): "
+          f"{lattice.last_generator or 'from the cache'}, "
+          f"{time.perf_counter() - t0:.1f} s on the host, beside phases "
+          "3, 4 and 9", flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -1100,10 +1200,7 @@ def box_path(dev, card: str):
     tabs = lattice.build_lattice_tables(sim.wiring, cfg.ngravs_en,
                                         cfg.box_size, device=dev)
     tab_s = time.perf_counter() - t0
-    rng = np.random.default_rng(3)
-    idx = torch.as_tensor(np.sort(rng.choice(n, ORACLE_TARGETS,
-                                             replace=False)).astype(np.int32),
-                          device=dev)
+    idx = oracle_targets(n, dev)
     fsoft = torch.as_tensor(sim.force_soft, device=dev)[p.ptype.long()]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1149,6 +1246,8 @@ def box_path(dev, card: str):
     profile_pass(sim, solver, card, "profiled TreePM pass (x < box/8)",
                  with_pm=True, slab=0.125)
     stamp("box path timed and profiled passes")
+    potential_pass(sim, card, "slice 2 box", "K1bcd/pot",
+                   {"periodic": RMS_POT_BOX})
     check_reproducible(sim, solver, cfg, dev, card, run_dir)
     return launches, launched
 
@@ -1156,8 +1255,8 @@ def box_path(dev, card: str):
 def check_reproducible(sim, solver, cfg, dev, card: str, run_dir: str):
     """Runs on the card repeat bit for bit (the tree's moments and PM's
     mass assignment are fixed-order sums): two full force passes (tree
-    build, walk, PM) from one state; two two-step runs from one state,
-    the run continued and the same steps resumed from a restart file
+    build, walk, PM) from one state; two REPRO_STEPS-step runs from one
+    state, the run continued and the same steps resumed from a restart file
     written at that state.  Then the tree build and one CIC assignment
     timed in turns with the fixed-order sums and with the plain atomic
     `index_add_` they replaced."""
@@ -1186,7 +1285,7 @@ def check_reproducible(sim, solver, cfg, dev, card: str, run_dir: str):
     runs = [sim, fresh]
     t0 = time.perf_counter()
     for r in runs:
-        r.run(max_steps=2)
+        r.run(max_steps=REPRO_STEPS)
     torch.cuda.synchronize()
     fields = ("pos", "vel", "accel", "accel_pm", "old_acc", "ti_endstep")
     if fresh.ti_current != sim.ti_current or not all(
@@ -1194,7 +1293,8 @@ def check_reproducible(sim, solver, cfg, dev, card: str, run_dir: str):
         raise AssertionError("the resumed run differs from the continued "
                              "run")
     print(f"reproducible [{card}]: two full force passes (tree build, walk, "
-          f"PM) bit-identical; 2 steps continued and the same 2 resumed "
+          f"PM) bit-identical; {REPRO_STEPS} step(s) continued and the same "
+          f"resumed "
           f"from the restart file: every array bit-identical ({fields}; "
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
 
@@ -1588,7 +1688,8 @@ def ewald_path(dev, card: str, wiring: str = "newton_yukawa",
     EWALD_STEPS steps with FORCETEST.  Returns its K1 launch count, the inputs
     of every launch of a full pass after the steps, and the largest |acc|
     difference of those launches from the twin.  Phase 13c runs it with the
-    stock wiring (one Newton law: K1c)."""
+    stock wiring (one Newton law: K1c).  Then phase 14 on the final state
+    (the instance with the potential, RMS_POT_EWALD[wiring])."""
     from ngravs_tpu_torch.config import read_parameter_file
     from ngravs_tpu_torch.integrate.runner import Simulation
     from ngravs_tpu_torch.ops import lattice
@@ -1646,6 +1747,8 @@ def ewald_path(dev, card: str, wiring: str = "newton_yukawa",
         # of a whole pass (321k kernels) took about 200 s on the H100's host
         profile_pass(sim, solver, card, "profiled Ewald pass (x < box/16)",
                      ranges=("lattice_pass",), slab=0.0625)
+    potential_pass(sim, card, label, instance + "/pot",
+                   {"periodic": RMS_POT_EWALD[wiring]})
     sim.close()
     return launches, launched, worst
 
@@ -1794,6 +1897,8 @@ def tabulated_path(dev, card: str):
           f"{RTOL_TERMS:g} of each target's sum of |terms| (max|dacc| "
           f"{float(err_a.max()):.3g}), pair counts equal; {ms:.2f} ms on the "
           f"card (median of 3), {cpu_s:.2f} s on the CPU", flush=True)
+    potential_pass(sim, card, "tabulated TreePM path", None,
+                   {"periodic": RMS_POT_TABULATED})
     sim.close()
 
 
@@ -2256,6 +2361,8 @@ def glass_path(dev, card: str):
         raise AssertionError("glass gates: velocities, positions or forces")
     if not var[-1] < var[0]:
         raise AssertionError(f"the glass did not smooth: variance {var}")
+    potential_pass(sim, card, "glass path", "K1cd/pot",
+                   {"periodic": RMS_POT_GLASS})
     sim.close()
     return sum(counts.values()), launched
 
@@ -2396,7 +2503,8 @@ def dist_config(job: dict):
                                    tree_depth=12)
     return read_parameter_file(job["param"], pmgrid=BOX_PMGRID, n_gravs=2,
                                wiring="newton_yukawa", pm_interlace=True,
-                               force_test=FORCETEST_FRAC)
+                               force_test=FORCETEST_FRAC,
+                               output_potential=job.get("pot", False))
 
 
 def dist_sim(mesh, job: dict, log_dir: str):
@@ -2497,6 +2605,25 @@ def dist_pass_checks(sim, dev):
                 finite=bool(torch.isfinite(acc).all()))
 
 
+def dist_potential(sim, dev) -> dict:
+    """Rank 0: the gathered potential of the last step on ORACLE_TARGETS
+    targets against the periodic direct sum with the lattice correction
+    (phase 14's periodic rule).  Every rank gathers."""
+    from ngravs_tpu_torch.ops import lattice
+    pg, _ = sim.gather_ordered()
+    if sim.mesh.rank != 0:
+        return {}
+    p, cfg = pg.to(dev), sim.cfg
+    tabs = lattice.build_lattice_tables(sim.wiring, cfg.ngravs_en,
+                                        cfg.box_size, device=dev)
+    idx = oracle_targets(p.n, dev)
+    pot_d = potential_oracle(sim.wiring, sim.force_soft, sim.units.G, p,
+                             idx, cfg.box_size, tabs)
+    return dict(pot_errs=periodic_pot_errors(
+        p.potential[idx.long()], pot_d, p.grav[idx.long()], cfg.n_gravs),
+        pot_finite=bool(torch.isfinite(p.potential).all()))
+
+
 def dist_open(mesh, job: dict, run_dir: str):
     """11a on one rank: DIST_STEPS steps, one force pass checked; with
     `repeat`, the same run again, bit for bit."""
@@ -2529,7 +2656,16 @@ def dist_box(mesh, job: dict, run_dir: str):
     if mesh.rank == 0 and os.path.exists(ft):
         os.remove(ft)
     sim = dist_sim(mesh, job, log_dir)
-    out = dist_drive(mesh, sim, DIST_BOX_STEPS, job["name"])
+    pot = {}
+
+    def first_step_potential(k):
+        # phase 14 on ranks: the first step's (every particle active)
+        # gathered potential under the periodic rule
+        if k == 0 and job.get("pot"):
+            pot.update(dist_potential(sim, dev))
+    out = dist_drive(mesh, sim, DIST_BOX_STEPS, job["name"],
+                     after=first_step_potential)
+    out.update(pot)
     out["forcetest"] = forcetest_steps(ft) if mesh.rank == 0 else []
     if job.get("pm"):
         spm = sim._step_pm_fn.pm_sharded
@@ -2566,6 +2702,10 @@ def dist_box(mesh, job: dict, run_dir: str):
                 and np.array_equal(snap.pid[o].astype(np.int64),
                                    pg.pid.numpy().astype(np.int64) + 0)
                 and np.array_equal(snap.mass[o], pg.mass.numpy()))
+            if job.get("pot"):
+                out["pot_block_equal"] = bool(
+                    snap.pot is not None
+                    and np.array_equal(snap.pot[o], pg.potential.numpy()))
         path = sim.save_restart(os.path.join(log_dir, "restart_dist.npz"))
         again = dist_sim(mesh, job, log_dir + "_resumed")
         again.resume(path)
@@ -2623,54 +2763,139 @@ def dist_launch(world: int, backend: str, jobs, run_dir: str, tag: str):
     return ranks, wall
 
 
-def distributed_paths(card: str):
-    """Phase 11: the 60k open box and the 2 x 64^3 TreePM box on 1 rank
-    over NCCL and 2 ranks over gloo sharing the card, replicated and LET,
-    through `DistributedSimulation`; one `--devices 2` run through the
-    command line.  Returns each configuration's numbers by rank."""
+def dist_jobs(world: int, open_param: str, box_param: str) -> list:
+    """Phase 11's configurations for one launch of `world` ranks: the 60k
+    open box and the 2 x 64^3 TreePM box, replicated and LET."""
+    return [
+        dict(name=f"open_rep_{world}", kind="open", param=open_param,
+             let=False, repeat=world == 2),
+        dict(name=f"open_let_{world}", kind="open", param=open_param,
+             let=True),
+        dict(name=f"box_rep_{world}", kind="box", param=box_param,
+             let=False, pm=True),
+        dict(name=f"box_let_{world}", kind="box", param=box_param,
+             let=True, files=world == 2, pot=world == 2)]
+
+
+def gas_dist_jobs(world: int, param: str) -> list:
+    """Phase 12's configurations for one launch of `world` ranks: slice
+    3's gas box, replicated and LET, from phase 6's first step."""
+    single = SINGLE["gas"]
+    common = dict(kind="gas", param=param, h0=single["h0"],
+                  first=single["first"])
+    return [dict(common, name=f"gas_rep_{world}", let=False,
+                 repeat=world == 2),
+            dict(common, name=f"gas_let_{world}", let=True,
+                 files=world == 2)]
+
+
+def command_lines(card: str, runs):
+    """`python -m ngravs_tpu_torch.run <param> --devices 2 --backend gloo`
+    for each (label, param, check) of `runs`, all started at once (their
+    ranks share the card; each is gated on its exit code and `check(stdout
+    lines)`, not timed against anything).  Each run's output goes to files
+    beside its parameterfile."""
+    procs = []
+    t0 = time.perf_counter()
+    for label, param, check in runs:
+        base = os.path.splitext(param)[0]
+        out, err = open(base + ".out", "w+"), open(base + ".err", "w+")
+        procs.append((label, check, out, err, subprocess.Popen(
+            [sys.executable, "-m", "ngravs_tpu_torch.run", param,
+             "--devices", "2", "--backend", "gloo", "--device",
+             DIST_DEVICE], cwd=ROOT, stdout=out, stderr=err, text=True)))
+    ends = {}
+    try:
+        while len(ends) < len(procs):
+            for i, (*_, proc) in enumerate(procs):
+                if i not in ends and proc.poll() is not None:
+                    ends[i] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError("a --devices 2 run took over 600 s")
+            time.sleep(0.2)
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for i, (label, check, out, err, proc) in enumerate(procs):
+        out.seek(0)
+        err.seek(0)
+        lines = out.read().strip().splitlines()
+        errs = err.read()
+        out.close()
+        err.close()
+        print(f"{label} [{card}]: exit {proc.returncode} in {ends[i]:.1f} s "
+              f"({len(procs)} started at once); " + " | ".join(lines[-3:]),
+              flush=True)
+        if proc.returncode != 0 or not lines or "over gloo" not in lines[0] \
+                or not check(lines):
+            raise AssertionError(f"the {label} run failed:\n"
+                                 + "\n".join(lines[-10:]) + errs[-3000:])
+
+
+def distributed_runs(card: str, phases) -> dict:
+    """Phases 11 and 12 (those of `phases`) in one launch a world size: 1
+    rank over NCCL, then 2 ranks over gloo sharing the card, each running
+    phase 11's configurations (`dist_jobs`) and then phase 12's
+    (`gas_dist_jobs`) through `DistributedSimulation`; then each phase's
+    `--devices 2` command line, the two at once.  Returns each
+    configuration's numbers by rank."""
     run_dir = os.path.join(ROOT, "build", "chip_smoke_dist")
+    gas_dir = os.path.join(ROOT, "build", "chip_smoke_dist_gas")
     os.makedirs(run_dir, exist_ok=True)
+    os.makedirs(gas_dir, exist_ok=True)
     open_param = write_galaxy_collision(run_dir)
     box_param = write_cosmo_box(run_dir)
-    jobs = {}
-    for world in (1, 2):
-        jobs[world] = [
-            dict(name=f"open_rep_{world}", kind="open", param=open_param,
-                 let=False, repeat=world == 2),
-            dict(name=f"open_let_{world}", kind="open", param=open_param,
-                 let=True),
-            dict(name=f"box_rep_{world}", kind="box", param=box_param,
-                 let=False, pm=True),
-            dict(name=f"box_let_{world}", kind="box", param=box_param,
-                 let=True, files=world == 2)]
+    gas_param = write_gas_box(gas_dir) if 12 in phases else None
     results = {}
     for world, backend in DIST_LAUNCHES:
-        ranks, wall = dist_launch(world, backend, jobs[world], run_dir,
-                                  f"launch_{world}")
-        stamp(f"phase 11, {world} rank(s) over {backend}")
-        for job in jobs[world]:
+        jobs = (dist_jobs(world, open_param, box_param)
+                if 11 in phases else []) \
+            + (gas_dist_jobs(world, gas_param) if 12 in phases else [])
+        ranks, _ = dist_launch(world, backend, jobs, run_dir,
+                               f"launch_{world}")
+        stamp(f"phases {', '.join(map(str, sorted(phases)))}, {world} "
+              f"rank(s) over {backend}")
+        for job in jobs:
             per = [r[job["name"]] for r in ranks]
             results[job["name"]] = per
-            report_dist_job(job, per, world, backend, card)
-    # one run through the command line: the mpirun -n 2 analog
-    short = rewrite_param(open_param, os.path.join(run_dir, "cli.param"),
-                          TimeMax=0.002, TimeBetSnapshot=0.001,
-                          TimeOfFirstSnapshot=0.001, MaxSizeTimestep=0.0005,
-                          OutputDir=os.path.join(run_dir, "cli"))
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "ngravs_tpu_torch.run", short,
-                        "--devices", "2", "--backend", "gloo", "--device",
-                        DIST_DEVICE], cwd=ROOT, capture_output=True,
-                       text=True, timeout=600)
-    lines = r.stdout.strip().splitlines()
-    print(f"--devices 2 --backend gloo [{card}]: exit {r.returncode} in "
-          f"{time.perf_counter() - t0:.1f} s; " + " | ".join(lines[-3:]),
-          flush=True)
-    if r.returncode != 0 or "over gloo" not in lines[0] \
-            or not lines[-1].startswith("done:"):
-        raise AssertionError("the --devices 2 run failed:\n"
-                             + r.stderr[-3000:])
-    stamp("phase 11, the --devices 2 command line")
+            if job["kind"] == "gas":
+                report_gas_job(job, per, world, backend, card)
+            else:
+                report_dist_job(job, per, world, backend, card)
+    runs = []
+    if 11 in phases:
+        # the mpirun -n 2 analog on a short open-box run
+        short = rewrite_param(open_param, os.path.join(run_dir, "cli.param"),
+                              TimeMax=0.002, TimeBetSnapshot=0.001,
+                              TimeOfFirstSnapshot=0.001,
+                              MaxSizeTimestep=0.0005,
+                              OutputDir=os.path.join(run_dir, "cli"))
+        runs.append(("--devices 2 --backend gloo", short,
+                     lambda lines: lines[-1].startswith("done:")))
+    if 12 in phases:
+        # the gas scheme at 2 x CLI_NSIDE^3 (a parameterfile cannot ask
+        # for PMGRID: a periodic pure-tree box), 2 steps, a snapshot after
+        # the first
+        small = write_gas_box(gas_dir, ns=CLI_NSIDE, name="cli_gas_box")
+        short = rewrite_param(small, os.path.join(gas_dir, "cli.param"),
+                              TimeMax=0.1 * (1 + 1e-6), TimeBetSnapshot=0.5,
+                              TimeOfFirstSnapshot=0.1,
+                              OutputDir=os.path.join(gas_dir, "cli"))
+        runs.append(("gas --devices 2 --backend gloo", short,
+                     lambda lines: lines[-1].startswith("done: 2 steps")))
+    command_lines(card, runs)
+    if 12 in phases:
+        from ngravs_tpu_torch.io.gadget_format import read_snapshot_set
+        snap = read_snapshot_set(os.path.join(gas_dir, "cli",
+                                              "snapshot_000"))
+        if not (snap.u is not None and np.isfinite(snap.u).all()
+                and int(snap.header.npart[0]) == CLI_NSIDE ** 3):
+            raise AssertionError("the gas --devices 2 run's snapshot has no "
+                                 "gas blocks")
+    stamp(f"phases {', '.join(map(str, sorted(phases)))}, the --devices 2 "
+          "command lines")
     return results
 
 
@@ -2745,6 +2970,24 @@ def report_dist_job(job: dict, per, world: int, backend: str, card: str):
                                        and all(r["restart_equal"]
                                                for r in per)):
         raise AssertionError(f"{name}: snapshot or restart round trip")
+    if job.get("pot"):
+        n_pot = [r["counts"].get("K1bcd/pot", 0) for r in per]
+        errs = r0["pot_errs"]
+        print(f"{name} potential [{card}]: OutputPotential, K1bcd/pot "
+              f"launches by rank {n_pot}; the first step's gathered "
+              f"potential on {ORACLE_TARGETS} targets against the periodic "
+              "direct sum with the lattice correction, by gravity (mean d, "
+              "rms(d - mean d) / rms(pot_direct)): "
+              + ", ".join(f"{g}: {m:.6e}, {e:.3e}" for g, m, e in errs)
+              + f" (gate {RMS_POT_BOX:.3e}); POT block of the multi-file "
+              f"snapshot equal {r0['pot_block_equal']}", flush=True)
+        if min(n_pot) <= 0:
+            raise AssertionError(f"{name}: a rank never launched "
+                                 f"K1bcd/pot: {n_pot}")
+        if not (r0["pot_finite"] and max(e for _, _, e in errs)
+                < RMS_POT_BOX and r0["pot_block_equal"]):
+            raise AssertionError(f"{name}: potential gates {errs}, POT "
+                                 f"block equal {r0['pot_block_equal']}")
 
 
 # --------------------------------------------------------------------------
@@ -2874,61 +3117,6 @@ def gas_job(mesh, job: dict, run_dir: str):
     return out
 
 
-def distributed_gas_paths(card: str):
-    """Phase 12: slice 3's gas box on 1 rank over NCCL and 2 ranks over
-    gloo sharing the card, replicated and LET, through
-    `DistributedSimulation`; one 2-step `--devices 2` gas run through the
-    command line.  Returns each configuration's numbers by rank."""
-    run_dir = os.path.join(ROOT, "build", "chip_smoke_dist_gas")
-    os.makedirs(run_dir, exist_ok=True)
-    param = write_gas_box(run_dir)
-    single = SINGLE["gas"]
-    common = dict(kind="gas", param=param, h0=single["h0"],
-                  first=single["first"])
-    results = {}
-    for world, backend in DIST_LAUNCHES:
-        jobs = [dict(common, name=f"gas_rep_{world}", let=False,
-                     repeat=world == 2),
-                dict(common, name=f"gas_let_{world}", let=True,
-                     files=world == 2)]
-        ranks, _ = dist_launch(world, backend, jobs, run_dir,
-                               f"launch_{world}")
-        stamp(f"phase 12, {world} rank(s) over {backend}")
-        for job in jobs:
-            per = [r[job["name"]] for r in ranks]
-            results[job["name"]] = per
-            report_gas_job(job, per, world, backend, card)
-    # one gas run through the command line: the scheme at 2 x CLI_NSIDE^3
-    # (a parameterfile cannot ask for PMGRID: a periodic pure-tree box), 2
-    # steps, a snapshot after the first
-    small = write_gas_box(run_dir, ns=CLI_NSIDE, name="cli_gas_box")
-    short = rewrite_param(small, os.path.join(run_dir, "cli.param"),
-                          TimeMax=0.1 * (1 + 1e-6), TimeBetSnapshot=0.5,
-                          TimeOfFirstSnapshot=0.1,
-                          OutputDir=os.path.join(run_dir, "cli"))
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "ngravs_tpu_torch.run", short,
-                        "--devices", "2", "--backend", "gloo", "--device",
-                        DIST_DEVICE], cwd=ROOT, capture_output=True,
-                       text=True, timeout=600)
-    lines = r.stdout.strip().splitlines()
-    print(f"gas --devices 2 --backend gloo [{card}]: exit {r.returncode} in "
-          f"{time.perf_counter() - t0:.1f} s; " + " | ".join(lines[-3:]),
-          flush=True)
-    if r.returncode != 0 or "over gloo" not in lines[0] \
-            or not lines[-1].startswith("done: 2 steps"):
-        raise AssertionError("the gas --devices 2 run failed:\n"
-                             + r.stdout[-1000:] + r.stderr[-3000:])
-    from ngravs_tpu_torch.io.gadget_format import read_snapshot_set
-    snap = read_snapshot_set(os.path.join(run_dir, "cli", "snapshot_000"))
-    if not (snap.u is not None and np.isfinite(snap.u).all()
-            and int(snap.header.npart[0]) == CLI_NSIDE ** 3):
-        raise AssertionError("the gas --devices 2 run's snapshot has no "
-                             "gas blocks")
-    stamp("phase 12, the gas --devices 2 command line")
-    return results
-
-
 def report_gas_job(job: dict, per, world: int, backend: str, card: str):
     """Print one gas configuration's numbers and hold them to phase 12's
     gates."""
@@ -2963,7 +3151,7 @@ def report_gas_job(job: dict, per, world: int, backend: str, card: str):
             raise AssertionError(f"{name}: non-finite state")
     if len(set(map(tuple, (r["timeline"] for r in per)))) != 1:
         raise AssertionError(f"{name}: the ranks' timelines differ")
-    check_forcetest(name, os.path.join(ROOT, "build", "chip_smoke_dist_gas",
+    check_forcetest(name, os.path.join(ROOT, "build", "chip_smoke_dist",
                                        name, "forcetest.txt"),
                     card, RMS_TREEPM, 1, DIST_GAS_STEPS)
     want = single["syncs"][DIST_GAS_STEPS - 1]
@@ -3010,15 +3198,17 @@ def rms_by_grav(rel, grav, n_gravs: int) -> list:
 
 
 def open_law_path(dev, card: str, label: str, instance: str, wiring: str,
-                  changes: dict, **cfg_kw):
+                  changes: dict, pot_bounds=None, **cfg_kw):
     """Phases 13a and 13b: slice 1's IC and parameterfile (with the tags
     `changes`) run with `wiring`, LAW_STEPS steps; then one full tree pass
     against the direct sweep with the same wiring (N = 1 per particle),
     its rms by gravity below RMS_TREE, momentum rate below MOMENTUM_RATE;
     with the accumulator, the same pass with it off must err more on the
     BAM targets (gravity 1).  Every K1 launch of the pass against the
-    twin.  Returns (launches of `instance`, the pass's launches, the
-    largest |acc| difference from the twin)."""
+    twin.  Then phase 14 on the final state, the potential's rms by
+    gravity within `pot_bounds` ({gravity: bound}; RMS_POT_OPEN for
+    each by default).  Returns (launches of `instance`, the pass's
+    launches, the largest |acc| difference from the twin)."""
     from ngravs_tpu_torch.config import read_parameter_file
     from ngravs_tpu_torch.integrate.runner import Simulation
     from ngravs_tpu_torch.models.wiring import build_wiring
@@ -3089,6 +3279,8 @@ def open_law_path(dev, card: str, label: str, instance: str, wiring: str,
             raise AssertionError(f"{label}: the accumulator made the BAM "
                                  f"targets no better: {rms} vs off {rms_off}")
     worst = check_every_launch(f"{label} pass", launched)
+    potential_pass(sim, card, label, instance + "/pot", {"open": pot_bounds
+                   or {0: RMS_POT_OPEN, 1: RMS_POT_OPEN}})
     sim.close()
     return n_inst, launched, worst
 
@@ -3211,6 +3403,7 @@ def law_matrix(dev, card: str, path_counts: dict) -> list:
            *open_law_path(dev, card, "13b bam accumulator", "K1b+count",
                           "bam", {"GravityHalo": 1, "GravityDisk": 0,
                                   "TypeOfOpeningCriterion": 0},
+                          pot_bounds={0: RMS_POT_OPEN, 1: RMS_TREE},
                           ngravs_accumulator=True))
     stamp("phase 13b (bam, accumulator)")
     n, launched, worst = ewald_path(dev, card, wiring="newton",
@@ -3224,6 +3417,131 @@ def law_matrix(dev, card: str, path_counts: dict) -> list:
     stamp("phase 13d (three species)")
     print(f"law matrix K1 launches {launches}", flush=True)
     return entries
+
+
+# --------------------------------------------------------------------------
+# phase 14: the potential
+# --------------------------------------------------------------------------
+
+def potential_oracle(wiring, force_soft, g_const: float, p, idx=None,
+                     box: float = 0.0, tables=None):
+    """G times the direct-sum potential on the targets `idx` (every
+    particle when None), periodic with the lattice correction when
+    `tables` are given (ops/direct.py, as slice 2's force oracle), summed
+    in float64: in the tabulated box d varies by a few 1e-8 of the
+    potential, the rounding of a float32 sum."""
+    from ngravs_tpu_torch.ops.direct import direct_forces
+    fsoft = torch.as_tensor(force_soft, device=p.pos.device)[p.ptype.long()]
+    kw = dict(box=box, lattice_tables=tables, chunk=32) \
+        if tables is not None else dict(chunk=1024)
+    _, pot = direct_forces(wiring, p.pos, p.mass, p.grav, fsoft,
+                           tgt_idx=idx, want_pot=True, dtype=torch.float64,
+                           **kw)
+    return pot * g_const
+
+
+def oracle_targets(n: int, dev):
+    """The ORACLE_TARGETS sampled targets of the periodic oracles (the box
+    path's TreePM pass, the periodic potential rule)."""
+    rng = np.random.default_rng(3)
+    return torch.as_tensor(np.sort(rng.choice(n, ORACLE_TARGETS,
+                                              replace=False))
+                           .astype(np.int32), device=dev)
+
+
+def periodic_pot_errors(pot, pot_d, grav, n_gravs: int) -> list:
+    """The periodic rule per gravity: (gravity, mean d, rms(d - mean d) /
+    rms(pot_d)) of d = pot - pot_d."""
+    out = []
+    for g in range(n_gravs):
+        s = grav == g
+        if not bool(s.any()):
+            continue
+        d, pd = (pot[s] - pot_d[s]).double(), pot_d[s].double()
+        m = d.mean()
+        out.append((g, float(m), float(torch.sqrt(torch.mean((d - m) ** 2))
+                                       / torch.sqrt(torch.mean(pd * pd)))))
+    return out
+
+
+def potential_pass(sim, card: str, label: str, instance, gate: dict):
+    """Phase 14 on one path's final state (its steps are not run again):
+    the K1 counts from 0, one `sim.update_full_potential()` with each K1
+    launch recorded, `instance` (potential on; None for the tabulated
+    box, which launches no K1) required in the counts, the potential
+    finite, one energy.txt line (`energy_statistics`) with a finite Epot;
+    the potential against the direct sum: `gate` {"open": {gravity:
+    bound}} holds the rms over each gravity's particles of |dpot| /
+    |pot_d| below its bound, {"periodic": bound} the periodic rule on
+    ORACLE_TARGETS targets; then every K1 launch
+    against the twin and the largest timed, its entry added to PHASE14."""
+    from ngravs_tpu_torch.diagnostics.energy import format_energy_line
+    from ngravs_tpu_torch.ops import lattice, pairwise
+    t_start = time.perf_counter()
+    p = sim.p
+    launched = []
+    sim.solver.pair_eval = record_launches(pairwise.pairwise_eval, launched)
+    pairwise.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.update_full_potential()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(pairwise.pairwise_eval.counts)
+    sim.solver.pair_eval = pairwise.pairwise_eval
+    n_pot = counts.get(instance, 0) if instance else 0
+    if instance and n_pot <= 0:
+        raise AssertionError(f"{label}: the potential pass never launched "
+                             f"{instance}: {counts}")
+    if not instance and counts:
+        raise AssertionError(f"{label}: K1 launched {counts}")
+    pot = sim.p.potential
+    if not bool(torch.isfinite(pot).all()):
+        raise AssertionError(f"{label}: non-finite potential")
+    s = sim.energy_statistics()
+    if not math.isfinite(float(s.energy_pot)):
+        raise AssertionError(f"{label}: Epot {float(s.energy_pot)}")
+    print(f"{label} potential pass [{card}]: update_full_potential on "
+          f"{sim.p.n} particles in {secs:.3f} s, K1 launches {counts}; "
+          f"energy.txt line: {format_energy_line(sim.time, s)}", flush=True)
+    cfg, ng = sim.cfg, sim.cfg.n_gravs
+    if "open" in gate:
+        pot_d = potential_oracle(sim.wiring, sim.force_soft, sim.units.G, p)
+        rel = (pot - pot_d).abs() / pot_d.abs().clamp(min=1e-30)
+        rms = rms_by_grav(rel, p.grav, ng)
+        bounds = gate["open"]
+        print(f"{label} potential [{card}]: rms |dpot| / |pot_direct| over "
+              f"every particle by gravity "
+              + ", ".join(f"{g}: {r:.3e} (gate {bounds[g]:g})"
+                          for g, r in enumerate(rms)), flush=True)
+        if not all(rms[g] < b for g, b in bounds.items()):
+            raise AssertionError(f"{label}: potential rms by gravity {rms}")
+    else:
+        tabs = lattice.build_lattice_tables(sim.wiring, cfg.ngravs_en,
+                                            cfg.box_size, device=p.pos.device)
+        idx = oracle_targets(p.n, p.pos.device)
+        pot_d = potential_oracle(sim.wiring, sim.force_soft, sim.units.G, p,
+                                 idx, cfg.box_size, tabs)
+        errs = periodic_pot_errors(pot[idx.long()], pot_d,
+                                   p.grav[idx.long()], ng)
+        print(f"{label} potential [{card}]: {ORACLE_TARGETS} targets against "
+              f"the periodic direct sum with the lattice correction, by "
+              f"gravity (mean d, rms(d - mean d) / rms(pot_direct)): "
+              + ", ".join(f"{g}: {m:.6e}, {e:.3e}" for g, m, e in errs)
+              + f" (gate {gate['periodic']:.3e})", flush=True)
+        if not max(e for _, _, e in errs) < gate["periodic"]:
+            raise AssertionError(f"{label}: periodic potential rule {errs}")
+    if launched:
+        worst = check_every_launch(f"{label} potential pass", launched)
+        batch = check_largest_launch(f"kernel ({label} potential batch)",
+                                     launched)
+        PHASE14["entries"].append(kernel_entry(
+            f"{batch['name']} (phase 14, {label}, update_full_potential)",
+            n_pot, batch, [batch["max_abs_err"], worst]))
+        PHASE14["counts"][instance] = PHASE14["counts"].get(instance, 0) \
+            + n_pot
+    PHASE14["seconds"] += time.perf_counter() - t_start
+    stamp(f"phase 14, {label}")
 
 
 # --------------------------------------------------------------------------
@@ -3304,12 +3622,20 @@ def main(argv=None) -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    pairwise.build_library(verbose=True)
-    t1 = time.perf_counter()
     native = lattice.build_native() is not None
-    print(f"build: pair kernel {t1 - t0:.1f} s; lattice-table generator "
+    t1 = time.perf_counter()
+    # the periodic paths' lattice tables (EN=64, the Newton and the Yukawa
+    # lattice: FORCETEST's oracle, the pure-tree walk, phase 14) made on
+    # the host while the kernel builds and phases 3, 4 and 9 run
+    tables = None
+    if any(want(k) for k in (5, 6, 7, 8, 10, 11, 12, 13)):
+        tables = threading.Thread(target=prebuild_lattice_tables)
+        tables.start()
+    pairwise.build_library(verbose=True)
+    print(f"build: pair kernel {time.perf_counter() - t1:.1f} s; "
+          f"lattice-table generator "
           f"{'native' if native else 'numpy (no host compiler)'} "
-          f"{time.perf_counter() - t1:.1f} s", flush=True)
+          f"{t1 - t0:.1f} s", flush=True)
 
     entries = []
     path_counts = {}
@@ -3336,6 +3662,14 @@ def main(argv=None) -> int:
             [batch["max_abs_err"]] + [r["max_abs_err"] for r in
                                       synthetic.get("K1a", {}).values()]))
         stamp("slice 1")
+    if want(9):
+        # phase 9 needs no lattice table: it runs while they are made
+        segment_paths(dev, card)
+    if tables is not None:
+        t0 = time.perf_counter()
+        tables.join()
+        stamp(f"lattice tables ready (waited {time.perf_counter() - t0:.1f}"
+              " s)")
     if want(5):
         launches2, launched = box_path(dev, card)
         batch = check_largest_launch("kernel (box-path batch)", launched)
@@ -3366,8 +3700,6 @@ def main(argv=None) -> int:
     if want(8):
         tabulated_path(dev, card)
         stamp("slice 4b (tabulated TreePM)")
-    if want(9):
-        segment_paths(dev, card)
     if want(10):
         launches5, launched = glass_path(dev, card)
         batch = check_largest_launch("kernel (glass-path batch)", launched)
@@ -3383,13 +3715,17 @@ def main(argv=None) -> int:
         sheet_path(dev, card)
         stamp("phase 10c (TWODIMS, LONG_X)")
     dist = {}
-    if want(11):
-        dist.update(distributed_paths(card))
-    if want(12):
-        dist.update(distributed_gas_paths(card))
+    if want(11) or want(12):
+        dist = distributed_runs(card, {k for k in (11, 12) if want(k)})
     entries += dist_entries(dist)
     if want(13):
         entries += law_matrix(dev, card, path_counts)
+    # phase 14 ran inside each path, after its steps
+    entries += PHASE14["entries"]
+    for name, n in PHASE14["counts"].items():
+        path_counts[name] = path_counts.get(name, 0) + n
+    print(f"phase 14: the potential passes took {PHASE14['seconds']:.1f} s "
+          f"in all; K1 launches {PHASE14['counts']}", flush=True)
     for case, rep in synthetic.items():
         for want_pot, r in rep.items():
             entries.append(kernel_entry(

@@ -60,21 +60,31 @@ def _pair_fac(wiring: GravityWiring, tm, sm, gt, gs, r2, r, h, nsrc,
 
 def pairwise_forces(wiring: GravityWiring, tgt: ParticleSlice,
                     src: ParticleSlice, box: float = 0.0, chunk: int = 1024,
-                    want_pot: bool = True, lattice_tables=None):
+                    want_pot: bool = True, lattice_tables=None,
+                    dtype=torch.float32):
     """Forces of all sources on all targets; returns (acc [Nt,3], pot [Nt]).
 
     G=1 (the caller multiplies, as in gravtree.c:337-341); the potential
     uses the tree-walk sign convention (negative for attraction).  Self
     pairs are excluded by gid equality; padding rows (gid == -1) get zeros.
     `box` > 0 takes the minimum image; `lattice_tables`
-    (`lattice.build_lattice_tables`) add the Ewald correction.
+    (`lattice.build_lattice_tables`) add the Ewald correction.  `dtype`:
+    the arithmetic's (float64 for an oracle whose own rounding must stay
+    below the error it measures).
     """
     nt = tgt.pos.shape[0]
+    if dtype != torch.float32:
+        cast = lambda s: s._replace(pos=s.pos.to(dtype),
+                                    mass=s.mass.to(dtype),
+                                    fsoft=s.fsoft.to(dtype))
+        tgt, src = cast(tgt), cast(src)
+        if lattice_tables is not None:
+            lattice_tables = lattice_tables.to(dtype)
     if lattice_tables is not None:
         from .lattice import corner_table, lattice_correction
         corners = corner_table(lattice_tables)
-    acc = torch.zeros(nt, 3, dtype=torch.float32, device=tgt.pos.device)
-    pot = torch.zeros(nt, dtype=torch.float32, device=tgt.pos.device)
+    acc = torch.zeros(nt, 3, dtype=dtype, device=tgt.pos.device)
+    pot = torch.zeros(nt, dtype=dtype, device=tgt.pos.device)
     for c0 in range(0, nt, chunk):
         sl = slice(c0, min(c0 + chunk, nt))
         pt = tgt.pos[sl]
@@ -115,7 +125,7 @@ def pairwise_forces(wiring: GravityWiring, tgt: ParticleSlice,
 def direct_forces(wiring: GravityWiring, pos, mass, grav, fsoft,
                   tgt_idx: Optional[torch.Tensor] = None,
                   box: float = 0.0, chunk: int = 1024, want_pot: bool = True,
-                  lattice_tables=None):
+                  lattice_tables=None, dtype=torch.float32):
     """All-sources-on-selected-targets wrapper over `pairwise_forces`
     (`tgt_idx`: [Nt] global indices, -1 = padding)."""
     n = pos.shape[0]
@@ -131,4 +141,5 @@ def direct_forces(wiring: GravityWiring, pos, mass, grav, fsoft,
                             gid=torch.where(tgt_idx >= 0, safe, -1)
                             .to(torch.int32))
     return pairwise_forces(wiring, tgt, src, box=box, chunk=chunk,
-                           want_pot=want_pot, lattice_tables=lattice_tables)
+                           want_pot=want_pot, lattice_tables=lattice_tables,
+                           dtype=dtype)

@@ -461,6 +461,9 @@ def _scatter(dst, orig, valid, val):
     return out
 
 
+SPLIT_LEVEL = 3   # SPH target blocks stay within cells of this level
+
+
 class HydroSolver:
     """Host-side driver for the SPH passes over the shared octree.
 
@@ -476,8 +479,12 @@ class HydroSolver:
         self.cand_cap = 4096
         self.frontier_cap = 2048
         # blocks kept within one cell of up to this level of the root
-        # (None: the active gas blocked as it comes in sorted order)
-        self.split_level = None
+        # (None: the active gas blocked as it comes in sorted order).  A
+        # block across a jump of the Morton curve (between two clumps, or
+        # over a rank's domain) would span the gap, and its neighbour walk
+        # would grow the candidate cap of every block
+        # (tools/port_studies/sph_clumps.py)
+        self.split_level = SPLIT_LEVEL
         self.counts = dict(density_iters=0, hydro_passes=0, cap_growths=0)
         # TWODIMS: 2D-normalized kernel, column density / boxSize_Z
         # (allvars.h:117-125, density.c:492-496)

@@ -620,17 +620,15 @@ def make_fused_walk(wiring: GravityWiring, n_gravs: int, *,
             m_g = cg[..., 3]
             cell_len = tree.root_len * 2.0 ** -lvl
 
-            # per-subgroup opening tests [B, F, S]
-            r2min = torch.full((B, F, S), big, device=dev)
-            for g in range(NG):
-                d2 = torch.zeros((B, F, S), device=dev)
-                for ax in range(3):
-                    dd = torch.clamp(_gap(cm[:, :, None, g, ax],
-                                          lo_b[:, None, :, ax],
-                                          hi_b[:, None, :, ax]), min=0.0)
-                    d2 = d2 + dd * dd
-                r2min = torch.minimum(
-                    r2min, torch.where(m_g[:, :, None, g] > 0, d2, big))
+            # per-subgroup opening tests [B, F, S]: every gravity and axis
+            # in one tensor [B, F, S, NG, 3], the squares summed x, y, z
+            # in that order (a few launches a level, not dozens)
+            dd = torch.clamp(_gap(cm[:, :, None], lo_b[:, None, :, None],
+                                  hi_b[:, None, :, None]), min=0.0)
+            sq = dd * dd
+            d2 = sq[..., 0] + sq[..., 1] + sq[..., 2]       # [B, F, S, NG]
+            r2min = torch.clamp(torch.amin(torch.where(
+                m_g[:, :, None, :] > 0, d2, big), dim=-1), max=big)
             mtot = torch.sum(m_g, dim=-1)                   # [B, F]
 
             if rel:
@@ -641,17 +639,11 @@ def make_fused_walk(wiring: GravityWiring, n_gravs: int, *,
             # the target subgroup intersects the node: always open; under
             # TreePM a node beyond Rcut of every subgroup is discarded with
             # its whole subtree
-            inter = torch.ones((B, F, S), dtype=torch.bool, device=dev)
-            byd = torch.zeros((B, F, S), dtype=torch.bool, device=dev) \
-                if rcut > 0 else None
-            for ax in range(3):
-                gx = _gap(center[:, :, None, ax], lo_b[:, None, :, ax],
-                          hi_b[:, None, :, ax])
-                inter = inter & (gx < 0.6 * cell_len)
-                if rcut > 0:
-                    byd = byd | (gx - 0.5 * cell_len > rcut)
+            gx = _gap(center[:, :, None], lo_b[:, None], hi_b[:, None])
+            inter = torch.all(gx < 0.6 * cell_len, dim=-1)  # [B, F, S]
             must_open_s = must_open_s | inter
             if rcut > 0:
+                byd = torch.any(gx - 0.5 * cell_len > rcut, dim=-1)
                 valid = valid & ~torch.all(byd, dim=-1)
             must_open = torch.any(must_open_s & sub_ok[:, None, :], dim=-1)
             accept = valid & ~must_open

@@ -51,7 +51,6 @@ GHOST_CAP, GHOST_MARGIN = 4096, 1.35    # JAX's first caps
 GA_F = 8      # round A: x y z vx vy vz mass hsml
 GB_F = 13     # round B: round A's, then rho pterm cs f1 dt
 TCHUNK = 1024     # targets a culling chunk
-SPLIT_LEVEL = 3   # SPH target blocks stay within cells of this level
 PAIRS = 1 << 22   # pairs in one dense tile
 
 
@@ -259,9 +258,6 @@ class LetFullStep(LetTreeStep):
         self.caps.setdefault("ghost", GHOST_CAP)
         self.caps.setdefault("margin", GHOST_MARGIN)
         self.hydro = hydro if hydro is not None else HydroSolver(cfg, units)
-        # a rank's local targets run over the jumps of the Morton curve in
-        # its domain: blocks stay within cells of level SPLIT_LEVEL
-        self.hydro.split_level = SPLIT_LEVEL
         self.box3 = tuple(cfg.box_sizes) if cfg.periodic \
             and cfg.box_size > 0 else None
         self.ghost_rows = [0, 0]

@@ -362,12 +362,13 @@ class DistributedSimulation:
             f"{pbal:.4g}\n\n")
         self._logs["timings"].flush()
 
-    def force_test(self):
+    def force_test(self, fraction=None, write=True):
         """gravity_forcetest (gravtree_forcetest.c:28) over the ranks: the
         state gathered and fed, on rank 0, to the single-device direct-sum
         oracle and forcetest.txt writer (Ewald-corrected when periodic,
-        even under PMGRID, begrun.c:47-49).  Returns its rows on rank 0,
-        None on the others."""
+        even under PMGRID, begrun.c:47-49).  `fraction` replaces
+        cfg.force_test; without `write` no forcetest.txt row is written.
+        Returns its rows on rank 0, None on the others."""
         from ..diagnostics.forcetest import force_test as _ft
         p, sph = self.gather_ordered()
         if self.mesh.rank != 0:
@@ -379,7 +380,7 @@ class DistributedSimulation:
             units=self.units, force_soft=self.force_soft,
             solver=self.solver, ti_current=self.ti_current,
             step_count=self.step_count, log_dir=self.log_dir)
-        return _ft(shim)
+        return _ft(shim, fraction=fraction, write=write)
 
     def domain_decomposition(self):
         """Re-split by measured work (domain_Decomposition, domain.c:62)."""
@@ -420,14 +421,23 @@ class DistributedSimulation:
         """run() (run.c:20): loop to TimeMax.  A `stop` file in the output
         directory or 85% of TimeLimitCPU writes a restart file and returns
         (run.c:67-103); a restart file is also written every
-        CpuTimeBetRestartFile seconds (run.c:108-125).  Returns the
-        number of steps."""
+        CpuTimeBetRestartFile seconds (run.c:108-125), and each rank a
+        crash dump before an exception propagates.  Returns the number of
+        steps."""
         steps = 0
         last_restart = _time.time()
         while self.ti_current < C.TIMEBASE:
             if self.time > self.cfg.time_max * (1 + 1e-12):
                 break
-            self.step()
+            try:
+                self.step()
+            except Exception:
+                if self.log_dir:
+                    try:
+                        self.write_crash_dump()
+                    except Exception:
+                        pass
+                raise
             steps += 1
             if max_steps is not None and steps >= max_steps:
                 break
@@ -572,15 +582,37 @@ class DistributedSimulation:
             if sph is not None:
                 payload.update({f"s_{k}": v.numpy()
                                 for k, v in vars(sph).items()})
-            np.savez(path, ti_current=self.ti_current, min_end=self._min_end,
-                     step_count=self.step_count,
-                     num_force_updates=self.num_force_updates,
-                     snapshot_count=self.snapshot_count,
-                     next_output=self._next_output,
-                     next_stats=self._next_stats,
-                     pm_ti_begstep=self.pm_ti_begstep,
-                     pm_ti_endstep=self.pm_ti_endstep, **payload)
+            np.savez(path, **self._scalars(), **payload)
         self.mesh.barrier()
+        return path
+
+    def _scalars(self) -> dict:
+        """The timeline and counters of a restart file."""
+        return dict(ti_current=self.ti_current, min_end=self._min_end,
+                    step_count=self.step_count,
+                    num_force_updates=self.num_force_updates,
+                    snapshot_count=self.snapshot_count,
+                    next_output=self._next_output,
+                    next_stats=self._next_stats,
+                    pm_ti_begstep=self.pm_ti_begstep,
+                    pm_ti_endstep=self.pm_ti_endstep)
+
+    def write_crash_dump(self) -> str:
+        """dump_particles (forcetree.c:3557) on this rank alone: its live
+        rows, their gas state and the timeline to `crash_dump.<rank>.npz`
+        under log_dir, with no collective (a rank that failed would never
+        join one).  `read_crash_dump` puts the rank files together."""
+        live = torch.nonzero(self.p.pid >= 0).squeeze(1)
+        payload = {f"p_{k}": v[live].cpu().numpy()
+                   for k, v in vars(self.p).items()}
+        if self.sph is not None:
+            payload.update({f"s_{k}": v[live].cpu().numpy()
+                            for k, v in vars(self.sph).items()})
+        os.makedirs(self.log_dir, exist_ok=True)
+        path = os.path.join(self.log_dir,
+                            f"crash_dump.{self.mesh.rank}.npz")
+        np.savez(path, rank=self.mesh.rank, n_ranks=self.n_dev,
+                 **self._scalars(), **payload)
         return path
 
     def resume(self, path: str | None = None):
@@ -616,3 +648,28 @@ class DistributedSimulation:
         self._next_stats = float(s["next_stats"])
         self._since_reshard = 0
         return self
+
+
+def read_crash_dump(log_dir: str) -> dict:
+    """The rank files of a multi-device crash dump put together in
+    particle-ID order, in `interop.read_distributed_restart`'s layout:
+    {"particles": {field: array}, "sph": {field: array} or None,
+    "scalars": {name: value}}."""
+    zs = [np.load(os.path.join(log_dir, f)) for f in os.listdir(log_dir)
+          if f.startswith("crash_dump.") and f.endswith(".npz")]
+    if not zs:
+        raise FileNotFoundError(f"no crash dump in {log_dir}")
+    n_ranks = int(zs[0]["n_ranks"])
+    if sorted(int(z["rank"]) for z in zs) != list(range(n_ranks)):
+        raise ValueError(f"{log_dir}: crash dump files of ranks "
+                         f"{sorted(int(z['rank']) for z in zs)}, not of "
+                         f"all {n_ranks}")
+    cat = lambda key: np.concatenate([z[key] for z in zs])
+    order = np.argsort(cat("p_pid"), kind="stable")
+    keys = zs[0].files
+    parts = {k[2:]: cat(k)[order] for k in keys if k.startswith("p_")}
+    sph = {k[2:]: cat(k)[order] for k in keys if k.startswith("s_")} or None
+    scalars = {k: zs[0][k][()] for k in keys
+               if not k.startswith(("p_", "s_")) and k not in ("rank",
+                                                               "n_ranks")}
+    return {"particles": parts, "sph": sph, "scalars": scalars}

@@ -5,7 +5,8 @@ evaluation on the card against the CPU; runs on the card that repeat bit
 for bit (two force passes, two three-step runs, a resume); segments on
 the card: the direct path's bit for bit its single stepping, the tree
 path's within the CPU test's tolerance of it, and the table drift equal
-to the CPU's; the bam wiring with the accumulator and the three_species
+to the CPU's; update_full_potential on the open box and on the TreePM
+box against the CPU; the bam wiring with the accumulator and the three_species
 TreePM box, one force pass each on the card against the CPU; and one rank
 over NCCL: the collisionless step against the
 single device, the replicated and the LET gas steps against the same
@@ -324,13 +325,13 @@ def test_kernel_refuses_a_law_without_a_kind(cuda):
                       sp.to(cuda), n_src.to(cuda), wiring=w)
 
 
-def _box_sims(devices):
-    """The comoving TreePM box (2 x 8^3, newton_yukawa), one Simulation on
-    each of `devices`."""
+def _box_sims(devices, ns=8):
+    """The comoving TreePM box (2 x ns^3, newton_yukawa, PMGRID 2 ns), one
+    Simulation on each of `devices`."""
     import math
     from ngravs_tpu_torch.units import set_units
     rng = np.random.default_rng(19)
-    ns, box = 8, 10000.0
+    box = 10000.0
     g = (np.stack(np.meshgrid(*[np.arange(ns)] * 3, indexing="ij"), -1)
          .reshape(-1, 3) + 0.5) / ns * box
     n = len(g)
@@ -343,7 +344,7 @@ def _box_sims(devices):
     cfg = SimulationConfig(
         comoving_integration=True, omega0=1.0, omega_lambda=0.0,
         omega_baryon=0.1, hubble_param=1.0, time_begin=0.1, time_max=0.2,
-        periodic=True, box_size=box, pmgrid=16, softening=(5.0,) * 6,
+        periodic=True, box_size=box, pmgrid=2 * ns, softening=(5.0,) * 6,
         max_size_timestep=0.1, n_gravs=2, type_to_grav=(0, 0, 1, 0, 0, 0),
         wiring="newton_yukawa", tree_depth=6, tree_bucket_size=16,
         time_bet_snapshot=0.0, time_of_first_snapshot=1e30,
@@ -375,6 +376,50 @@ def test_box_path_on_cuda_matches_cpu(cuda):
     assert torch.equal(sims[0].p.ti_endstep, sims[1].p.ti_endstep.cpu())
     assert pairwise_eval.launches > before
     assert any(k.startswith("K1bcd") for k in pairwise_eval.counts)
+
+
+def _potential_on_both(sims, instance, rtol):
+    """One step on each device, then update_full_potential: the card's
+    potential within `rtol` of the CPU's largest |pot|, `instance` (a K1
+    instance with the potential) launched."""
+    for s_ in sims:
+        s_.step()
+    tpw.reset_counts()
+    for s_ in sims:
+        s_.update_full_potential()
+    assert tpw.pairwise_eval.counts.get(instance, 0) > 0, \
+        tpw.pairwise_eval.counts
+    p0, p1 = sims[0].p.potential, sims[1].p.potential.cpu()
+    assert bool(torch.isfinite(p1).all()) and float(p0.abs().max()) > 0
+    assert float((p0 - p1).abs().max()) <= rtol * float(p0.abs().max())
+
+
+def test_open_box_potential_on_cuda_matches_cpu(cuda):
+    """update_full_potential on the open box (4,096 particles, two Plummer-
+    like clumps, the tree): K1a/pot on the card, within 1e-5 of the CPU's
+    largest |pot| (the main path's tolerance)."""
+    n = 4096
+    pos, mass, _ = _clumps(n, seed=3)
+    rng = np.random.default_rng(3)
+    vel = rng.normal(0, 0.3, (n, 3)).astype(np.float32)
+    ptype = np.where(rng.uniform(size=n) < 0.3, 2, 1)
+    cfg = SimulationConfig(
+        gravity_constant_internal=1.0, softening=(0.0,) + (0.05,) * 5,
+        max_size_timestep=0.01, time_bet_snapshot=0.0,
+        time_of_first_snapshot=1e30, time_bet_statistics=0.0, n_gravs=2,
+        type_to_grav=(0, 0, 1, 0, 0, 0), solver="tree", tree_depth=9)
+    sims = [Simulation(cfg, particles=Particles.create(
+        pos, vel, mass * 50 / n, np.arange(n), ptype, cfg.type_to_grav,
+        device=d), log_dir="") for d in ("cpu", cuda)]
+    _potential_on_both(sims, "K1a/pot", 1e-5)
+
+
+def test_treepm_box_potential_on_cuda_matches_cpu(cuda):
+    """update_full_potential on the comoving TreePM box at 2 x 16^3: the
+    short-range walk (K1bcd/pot) and PM's potential on the card, within
+    1e-4 of the CPU's largest |pot| (accel_pm's tolerance: the FFTs sum in
+    other orders)."""
+    _potential_on_both(_box_sims(("cpu", cuda), ns=16), "K1bcd/pot", 1e-4)
 
 
 def test_bam_accumulator_pass_on_cuda_matches_cpu(cuda):

@@ -222,7 +222,7 @@ def test_split_blocks_stay_in_cells_and_change_no_sum():
     cfg, units, tree, p, sph, n_gas = _sph_tree()
     plain, split = HydroSolver(cfg, units), HydroSolver(cfg, units)
     plain.cand_cap = split.cand_cap = 512      # grown where it overflows
-    split.split_level = 3
+    plain.split_level, split.split_level = None, 3
     level = split.split_level_for(n_gas)
     assert level == 1                         # 2 blocks a cell or more
     blocks = split._blocks(tree, p, 0, n_gas)

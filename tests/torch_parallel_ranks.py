@@ -199,6 +199,7 @@ def simulate(mesh, out, cfg_kw, inp_path, opts):
         res["ghost_retries"] = np.array(sim.ghost_retries)
     res.update(pos=p.pos.numpy(), vel=p.vel.numpy(), pid=p.pid.numpy(),
                accel=p.accel.numpy(), accel_pm=p.accel_pm.numpy(),
+               potential=p.potential.numpy(),
                ti_endstep=p.ti_endstep.numpy(),
                ti_begstep=p.ti_begstep.numpy(),
                aphys_old=p.aphys_old.numpy(), syncs=np.array(syncs),
@@ -224,6 +225,39 @@ def simulate(mesh, out, cfg_kw, inp_path, opts):
                     for k in ("old_acc",)})
     if opts.get("snapshot"):
         res["snapshot"] = sim.write_snapshot_now(opts["snapshot"])
+    save(out, mesh, **res)
+
+
+def crash_run(mesh, out, cfg_kw, inp_path, opts):
+    """A DistributedSimulation whose step number opts["crash_at"] raises on
+    every rank inside `step()`; before it, FORCETEST with
+    fraction=opts["fraction"] and write=False.  Saves the gathered state
+    from before the failing step, the exception's text and the rows
+    FORCETEST returned (rank 0)."""
+    from ngravs_tpu_torch.parallel.runner import DistributedSimulation
+    cfg = config(cfg_kw)
+    inp = dict(np.load(inp_path))
+    sim = DistributedSimulation(cfg, particles(inp, cfg), mesh=mesh,
+                                log_dir=opts["log_dir"])
+    for _ in range(opts["crash_at"]):
+        sim.step()
+    rows = sim.force_test(fraction=opts["fraction"], write=False)
+    p, _ = sim.gather_ordered()
+
+    def fail(*a, **kw):
+        raise RuntimeError(f"step failed on rank {mesh.rank}")
+    sim._step_fn = sim._step_pm_fn = fail
+    try:
+        sim.run(max_steps=5)
+        error = ""
+    except RuntimeError as e:
+        error = str(e)
+    res = {f"before_{k}": v.numpy() for k, v in vars(p).items()}
+    res.update(error=error, ti_current=sim.ti_current,
+               step_count=sim.step_count)
+    if rows is not None:
+        res.update(ft_idx=rows[0], ft_direct=rows[1], ft_solver=rows[2],
+                   ft_rel=rows[3])
     save(out, mesh, **res)
 
 
