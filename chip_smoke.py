@@ -79,9 +79,10 @@ Phases (any failure raises and exits non-zero):
     FORCETEST on 2,048 particles each step: K1 (the periodic multi-law instance, K1bc)
     must run beside the lattice pass; every step's FORCETEST rms relative
     error < 0.25 (the reference walk's error on this near-uniform IC; see
-    RMS_EWALD), momentum rate < 1e-3; every
-    K1 launch of a full pass within 1e-5 of its sum of |terms| of the
-    twin; the pass for the targets of a sixteenth of the box profiled (the
+    RMS_EWALD), momentum rate < 1e-3; every K1 launch of a fresh
+    solver's settling pass, the walk attempts that overflowed included,
+    within 1e-5 of its sum of |terms| of the twin; the pass for the
+    targets of a sixteenth of the box profiled (the
     `lattice_pass` range's share of device time); K1 against the twin on
     its largest launch;
  8. slice 4b, the TreePM box with the tabulated transition: slice 2's box
@@ -170,7 +171,10 @@ Phases (any failure raises and exits non-zero):
 13. the law matrix: four configurations, each with its K1 counts from 0
     and its K1 instance required in them, every K1 launch of one full
     force pass after its steps against the twin (within 1e-5 of each
-    target's sum of |terms|, pair counts equal) and its largest launch
+    target's sum of |terms|, pair counts equal; in (c) and (d) the pass
+    is a fresh solver's settling pass, the walk attempts that overflowed
+    included, and if no pass checked so far overflowed, (d) runs one
+    with its chunk cap cut so that it does) and its largest launch
     timed, momentum rate < 1e-3: (a) `newton_yukawa` (BASELINE config 2)
     on slice 1's IC, LAW_STEPS steps, K1b; (b) `bam` with
     NGRAVS_ACCUMULATOR, the halo (type 1) BAM dark matter and the rest
@@ -230,6 +234,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B, G, S = 128, 64, 4096          # the fused walk's pair-kernel shapes
 RTOL_TERMS = 1e-5                # of each target's sum of |terms|
+OVERFLOW_CHUNK_CAP = 64          # 13d's cut pass when none overflowed
 SCALE_SLICE = 4096               # sources a slice in term_scales
 MAIN_STEPS = 10                  # slice 1's path
 SEG_STEPS = 16                   # phase 9a's sync points
@@ -385,6 +390,8 @@ T_START = time.perf_counter()
 PHASE14 = {"entries": [], "counts": {}, "seconds": 0.0}
 # the single-device runs' numbers phase 11 compares with (phases 4 and 5)
 SINGLE = {}
+# the K1 launches of overflowing walk attempts held to the twin so far
+OVERFLOW_CHECKED = {"launches": 0}
 
 
 def stamp(what: str):
@@ -491,14 +498,13 @@ def kernel_inputs(dev, seed: int = 0, n_gravs: int = 1, box: float = 0.0,
 
 
 def term_scales(targets, sp, n_src, wiring=None, box_size=0.0,
-                accumulator=None, treepm_asmth=0.0, with_ops=True):
+                accumulator=None, treepm_asmth=0.0):
     """Per target: the sums over valid pairs of |fac*dx|, |fac*dy|,
     |fac*dz| and |pot term| (the scale of each sum, for the tolerance).
     Also the operations the kernel needs on these inputs (potential off,
     on), from the OPS tables: each valid pair by its law and, under TreePM,
-    by whether it lies inside the cut.  Counting them reads the card back
-    a few times a slice of sources; without `with_ops` nothing is read
-    back and the operations are None."""
+    by whether it lies inside the cut (counting them reads the card back a
+    few times a slice of sources)."""
     from ngravs_tpu_torch.models.laws import Newtonian
     from ngravs_tpu_torch.ops.pairwise import (FCOUNT, FMASS, FSOFT, FX, FY,
                                                FZ, IGID, IGRAV, law_entry,
@@ -532,19 +538,16 @@ def term_scales(targets, sp, n_src, wiring=None, box_size=0.0,
         sg = sp[:, IGRAV, cs].view(torch.int32)[:, None, :]
         fac = torch.zeros_like(r)
         pot = torch.zeros_like(r)
-        if with_ops:
-            base = float(valid.sum()) * (
-                OPS_BASE + (OPS_PERIODIC if box_size > 0 else 0)
-                + (OPS_TPM_U if inv2a else 0))
-            ops = [ops[0] + base, ops[1] + base]
+        base = float(valid.sum()) * (
+            OPS_BASE + (OPS_PERIODIC if box_size > 0 else 0)
+            + (OPS_TPM_U if inv2a else 0))
+        ops = [ops[0] + base, ops[1] + base]
         for law, slots in groups:
             mk = torch.zeros_like(valid)
             for i, j in slots:
                 mk = mk | ((col("grav") == i) & (sg == j))
             f, p = law_factors(law, col("mass"), sm, r2, r, h, n, True, inv2a)
             fac, pot = torch.where(mk, f, fac), torch.where(mk, p, pot)
-            if not with_ops:
-                continue
             kind = law_entry(law)[0]
             lf, lp = OPS_LAW[kind]
             npair = float((mk & valid).sum())
@@ -558,7 +561,7 @@ def term_scales(targets, sp, n_src, wiring=None, box_size=0.0,
             [torch.where(valid, (fac * x).abs(), 0.).sum(-1) for x in d]
             + [torch.where(valid, pot.abs(), 0.).sum(-1)],
             dim=-1).reshape(nb * g, 4)
-    return out, (ops if with_ops else None)
+    return out, ops
 
 
 def kernel_bound(targets, sp, n_src, flags, ops: float):
@@ -707,18 +710,72 @@ def all_active(sim):
                                                     sim.ti_current))
 
 
-def pass_solver(sim, cfg=None, wiring=None):
+def pass_solver(sim, cfg=None, wiring=None, launched=None, attempts=None):
     """A solver of its own for whole force passes at the current state, its
-    caps settled by one untimed pass; the run's solver is left as it is.
-    Each pass updates every particle, more than TreeDomainUpdateFrequency
-    * N, so the next pass rebuilds the tree.  `cfg` and `wiring` replace
-    the run's (phase 13b: the accumulator off)."""
+    caps settled by one pass; the run's solver is left as it is.  Each
+    pass updates every particle, more than TreeDomainUpdateFrequency * N,
+    so the next pass rebuilds the tree.  `cfg` and `wiring` replace the
+    run's (phase 13b: the accumulator off).  With `launched` and
+    `attempts` the settling pass records every K1 launch, those of
+    attempts that overflowed and were thrown away included
+    (`record_attempts`)."""
     from ngravs_tpu_torch.ops.solver import GravitySolver
     solver = GravitySolver(cfg or sim.cfg, wiring or sim.wiring,
                            sim.force_soft, sim.units.G,
                            hubble=sim.units.hubble, device=sim.device)
-    solver.compute(all_active(sim), sim.ti_current, sim.p.n)
+    if launched is None:
+        solver.compute(all_active(sim), sim.ti_current, sim.p.n)
+    else:
+        with record_attempts(solver, launched, attempts):
+            solver.compute(all_active(sim), sim.ti_current, sim.p.n)
     return solver
+
+
+class record_attempts:
+    """Within the block, `solver`'s K1 launches go to `launched` (as
+    `record_launches`) and each walk attempt of its passes appends
+    (first launch, end, overflowed, octet layout overflowed) to
+    `attempts`: the solver throws an overflowing attempt's results away,
+    grows its caps and walks again (`GravitySolver.compute`)."""
+
+    def __init__(self, solver, launched, attempts):
+        self.solver, self.launched, self.attempts = solver, launched, attempts
+
+    def __enter__(self):
+        solver, launched, attempts = self.solver, self.launched, self.attempts
+        walk = type(solver)._walk
+        self.pair_eval = solver.pair_eval
+        solver.pair_eval = record_launches(solver.pair_eval, launched)
+
+        def tagged_walk(want_pot):
+            fn = walk(solver, want_pot)
+
+            def run(*a, **kw):
+                first = len(launched)
+                res = fn(*a, **kw)
+                attempts.append((first, len(launched), bool(res.overflow),
+                                 bool(res.layout_ovf)))
+                return res
+            return run
+        solver._walk = tagged_walk
+        return self
+
+    def __exit__(self, *exc):
+        del self.solver._walk
+        self.solver.pair_eval = self.pair_eval
+        return False
+
+
+def overflowing(attempts) -> int:
+    """The recorded launches of the walk attempts that overflowed."""
+    return sum(end - first for first, end, ovf, _ in attempts if ovf)
+
+
+def settled_launches(launched, attempts):
+    """The launches of the last walk attempt, the one whose results the
+    solver kept."""
+    first, end = attempts[-1][:2]
+    return launched[first:end]
 
 
 def full_force_pass(sim, solver, pair_eval):
@@ -880,33 +937,187 @@ def instance_launches(label: str, counts: dict, instance: str) -> int:
     return n
 
 
-def check_every_launch(label: str, launched):
-    """Each recorded K1 launch against the twin on its own inputs: acc and
-    pot within RTOL_TERMS of each target's sum of |terms|, pair counts
-    equal.  Returns the largest |acc| difference."""
-    from ngravs_tpu_torch.ops.pairwise import (instance_name, instance_flags,
-                                               pairwise_eval,
+def compare_launch(targets, sp, n_src, want_pot, kw):
+    """K1 against the twin on one launch's inputs: acc and pot within
+    RTOL_TERMS of each target's sum of |terms| (the twin's own terms),
+    each value finite where the twin's is, pair counts equal.  Returns
+    (the largest |acc| difference, the targets that fail [B*G] bool, a
+    dict of both sides' outputs and the scales)."""
+    from ngravs_tpu_torch.ops.pairwise import (pairwise_eval,
                                                pairwise_eval_torch)
+    acc, pot, nia = pairwise_eval(targets, sp, n_src, want_pot, **kw)
+    acc_t, pot_t, nia_t, scale = pairwise_eval_torch(
+        targets, sp, n_src, want_pot, with_scale=True, **kw)
+    err = (acc - acc_t).abs()
+    bad = torch.any((err > RTOL_TERMS * scale[:, :3])
+                    | (torch.isfinite(acc) != torch.isfinite(acc_t)), dim=1)
+    if want_pot:
+        bad |= ((pot - pot_t).abs() > RTOL_TERMS * scale[:, 3]) \
+            | (torch.isfinite(pot) != torch.isfinite(pot_t))
+    bad |= nia != nia_t
+    return float(torch.nan_to_num(err, nan=0.0).max()), bad, dict(
+        acc=acc, acc_t=acc_t, pot=pot, pot_t=pot_t, nia=nia, nia_t=nia_t,
+        scale=scale)
+
+
+def pair_terms(targets, sp, n_src, t: int, want_pot, kw, kernel: bool):
+    """Target t's term from each of its block's first n_src source rows,
+    each row evaluated alone: by the twin, or with `kernel` by K1 (each
+    row a block of its own, the target in its 8 slots, the row padded to 4
+    columns with gid -1).  Returns acc [n, 3], pot [n] and the pair counts
+    [n]."""
+    from ngravs_tpu_torch.ops.pairwise import (IGID, pairwise_eval,
+                                               pairwise_eval_torch)
+    nb = sp.shape[0]
+    b = t // (targets["x"].shape[0] // nb)
+    n = int(n_src[b])
+    width, group = (4, 8) if kernel else (1, 1)
+    one = torch.zeros(n, 8, width, dtype=torch.float32, device=sp.device)
+    one[:, :, 0] = sp[b, :, :n].T
+    one.view(torch.int32)[:, IGID, 1:] = -1
+    tg = {k: v[t].reshape(1, 1).expand(n * group, 1).contiguous()
+          for k, v in targets.items()}
+    ns = torch.ones(n, 1, dtype=torch.int32, device=sp.device)
+    fn = pairwise_eval if kernel else pairwise_eval_torch
+    acc, pot, nia = fn(tg, one, ns, want_pot, **kw)
+    return (acc.reshape(n, group, 3)[:, 0], pot.reshape(n, group)[:, 0],
+            nia.reshape(n, group)[:, 0])
+
+
+def describe_rows(targets, sp, n_src, t: int, want_pot, kw):
+    """Target t's source rows, each evaluated alone by K1 and by the twin
+    (`pair_terms`): their sums, then the rows of the largest terms and of
+    the largest differences between the two."""
+    from ngravs_tpu_torch.ops.pairwise import (FCOUNT, FMASS, FSOFT, IGID,
+                                               IGRAV)
+    b = t // (targets["x"].shape[0] // sp.shape[0])
+    fmt = lambda v: "[" + ", ".join(f"{float(x):.7g}" for x in v) + "]"
+    ka, kp, kn = pair_terms(targets, sp, n_src, t, want_pot, kw, True)
+    ta, tp, tn = pair_terms(targets, sp, n_src, t, want_pot, kw, False)
+    print(f"  row by row: K1 sums to acc {fmt(ka.sum(0))} pairs "
+          f"{int(kn.sum())}, the twin to {fmt(ta.sum(0))} pairs "
+          f"{int(tn.sum())}", flush=True)
+    pos = torch.stack([targets[k][t, 0] for k in ("x", "y", "z")])
+    blk = sp[b]
+    sgid = blk[IGID].view(torch.int32)
+    sgrav = blk[IGRAV].view(torch.int32)
+
+    box = kw.get("box_size", 0.0)
+
+    def rows(order, what):
+        for q in order.tolist():
+            d = blk[0:3, q] - pos
+            if box > 0:
+                d = d - box * torch.round(d * (1.0 / box))
+            print(f"  {what} row {q}: gid {int(sgid[q])} grav "
+                  f"{int(sgrav[q])} pos {fmt(blk[0:3, q])} mass "
+                  f"{float(blk[FMASS, q]):.7g} soft {float(blk[FSOFT, q]):.7g}"
+                  f" count {float(blk[FCOUNT, q]):.7g} |d| "
+                  f"{float(torch.linalg.norm(d)):.7g}; K1 {fmt(ka[q])} "
+                  f"{float(kp[q]):.7g} ({int(kn[q])}), twin {fmt(ta[q])} "
+                  f"{float(tp[q]):.7g} ({int(tn[q])})", flush=True)
+    k = min(5, len(ta))
+    rows(torch.topk(torch.nan_to_num(ta.abs().sum(1), nan=1e30), k).indices,
+         "largest term")
+    diff = torch.nan_to_num((ka - ta).abs().sum(1) + (kp - tp).abs(),
+                            nan=1e30) + (kn != tn) * 1e30
+    rows(torch.topk(diff, k).indices, "largest K1 - twin")
+
+
+def report_disagreement(label: str, i: int, launch, bad, out, tag: str,
+                        save_dir: str, whole: bool = True) -> str:
+    """Print what a launch that disagrees with the twin holds: its plan,
+    the failing targets, and for the worst of them its block and row,
+    n_src and S, the kernel's, the twin's and the scale's values, and the
+    source rows of the largest terms and of the largest differences
+    between K1 and the twin evaluating each row alone.  Saves the launch's
+    inputs and outputs to `save_dir` (without `whole`, those of the blocks
+    that disagree only, `blocks` naming them).  Returns a one-line
+    summary."""
+    from ngravs_tpu_torch.ops.pairwise import (instance_flags, instance_name,
+                                               launch_plan)
+    targets, sp, n_src, want_pot, kw = launch
+    nb, _, s = sp.shape
+    g = targets["x"].shape[0] // nb
+    flags = instance_flags(want_pot=want_pot, **kw)
+    plan = launch_plan(g, s, flags)
+    scale = out["scale"]
+    err = torch.cat([(out["acc"] - out["acc_t"]).abs(),
+                     (out["pot"] - out["pot_t"]).abs()[:, None]], dim=1)
+    ratio = torch.nan_to_num(err / scale.clamp(min=1e-30), nan=1e30)
+    ratio = torch.where(bad[:, None], ratio, -1.0)
+    if not want_pot:
+        ratio[:, 3] = -1.0
+    t = int(torch.argmax(ratio.amax(dim=1)))
+    b, row = divmod(t, g)
+    nbad = torch.nonzero(bad).squeeze(1)
+    head = (f"{label}: launch {i} ({tag}) of {instance_name(flags)} "
+            f"{tuple(sp.shape)} plan {plan._asdict()}: {len(nbad)} targets "
+            f"in {len(torch.unique(nbad // g))} blocks disagree; worst "
+            f"block {b} row {t - b * g} (gid {int(targets['gid'][t])}, grav "
+            f"{int(targets['grav'][t])}), n_src {int(n_src[b])} of S {s}")
+    print(head, flush=True)
+    fmt = lambda v: "[" + ", ".join(f"{float(x):.7g}" for x in v) + "]"
+    print(f"  kernel acc {fmt(out['acc'][t])} pot {float(out['pot'][t]):.7g}"
+          f" pairs {int(out['nia'][t])}; twin acc {fmt(out['acc_t'][t])} pot"
+          f" {float(out['pot_t'][t]):.7g} pairs {int(out['nia_t'][t])}; sums"
+          f" of |terms| {fmt(scale[t])}", flush=True)
+    if int(n_src[b]) > 0:
+        describe_rows(targets, sp, n_src, t, want_pot, kw)
+    os.makedirs(save_dir, exist_ok=True)
+    slug = "".join(c if c.isalnum() else "_" for c in label)
+    path = os.path.join(save_dir, f"k1_disagreement_{slug}_{i}.pt")
+    blocks = torch.arange(nb, device=sp.device) if whole \
+        else torch.unique(nbad // g)
+    rows_of = (blocks[:, None] * g
+               + torch.arange(g, device=sp.device)[None, :]).reshape(-1)
+    cpu = lambda v, sel=rows_of: v[sel].detach().cpu()
+    torch.save(dict(label=label, launch=i, tag=tag, plan=plan._asdict(),
+                    blocks=blocks.cpu(),
+                    targets={k: cpu(v) for k, v in targets.items()},
+                    sp=cpu(sp, blocks), n_src=cpu(n_src, blocks),
+                    want_pot=want_pot,
+                    kw={k: v for k, v in kw.items() if k != "wiring"},
+                    wiring=kw.get("wiring"), bad=cpu(bad),
+                    out={k: cpu(v) for k, v in out.items()}), path)
+    print(f"  inputs saved to {path}", flush=True)
+    return (f"{head}; kernel acc {fmt(out['acc'][t])}, twin "
+            f"{fmt(out['acc_t'][t])}, sums of |terms| {fmt(scale[t])}; "
+            f"inputs in {path}")
+
+
+def check_every_launch(label: str, launched, attempts=None):
+    """Each recorded K1 launch against the twin on its own inputs
+    (`compare_launch`).  `attempts` (`record_attempts`) tags each launch
+    with its walk attempt; the line counts the launches of attempts that
+    overflowed.  A launch that disagrees is described and its inputs saved
+    under build/, then raises.  Returns the largest |acc| difference."""
+    from ngravs_tpu_torch.ops.pairwise import instance_name, instance_flags
+    tags = ["settled pass"] * len(launched)
+    for k, (first, end, ovf, lovf) in enumerate(attempts or ()):
+        what = (f"attempt {k + 1}, " + ("overflowed" + (
+            ", octet layout" if lovf else "") if ovf else "settled"))
+        tags[first:end] = [what] * (end - first)
     worst = 0.0
     names = set()
-    for targets, sp, n_src, want_pot, kw in launched:
-        scale, _ = term_scales(targets, sp, n_src, with_ops=False, **kw)
-        acc, pot, nia = pairwise_eval(targets, sp, n_src, want_pot, **kw)
-        acc_t, pot_t, nia_t = pairwise_eval_torch(targets, sp, n_src,
-                                                  want_pot, **kw)
-        err = (acc - acc_t).abs()
-        bad = bool((err > RTOL_TERMS * scale[:, :3]).any()) or (
-            want_pot and bool(((pot - pot_t).abs()
-                               > RTOL_TERMS * scale[:, 3]).any()))
-        if bad or not torch.equal(nia, nia_t):
-            raise AssertionError(f"{label}: a K1 launch disagrees with the "
-                                 "twin")
-        worst = max(worst, float(err.max()))
+    for i, launch in enumerate(launched):
+        targets, sp, n_src, want_pot, kw = launch
+        err, bad, out = compare_launch(targets, sp, n_src, want_pot, kw)
+        if bool(bad.any()):
+            raise AssertionError("a K1 launch disagrees with the twin: "
+                                 + report_disagreement(
+                                     label, i, launch, bad, out, tags[i],
+                                     os.path.join(ROOT, "build")))
+        worst = max(worst, err)
         names.add(instance_name(instance_flags(want_pot=want_pot, **kw)))
+    ovf = overflowing(attempts or ())
+    OVERFLOW_CHECKED["launches"] += ovf
     print(f"{label}: all {len(launched)} K1 launches "
-          f"({', '.join(sorted(names))}) within {RTOL_TERMS:g} of their "
-          f"sums of |terms| of the twin, pair counts equal, max|dacc| "
-          f"{worst:.3g}", flush=True)
+          f"({', '.join(sorted(names))}; {ovf} of them from walk attempts "
+          f"that overflowed, {sum(1 for a in attempts or () if a[2])} of "
+          f"{len(attempts or ())}) within {RTOL_TERMS:g} of their sums of "
+          f"|terms| of the twin, pair counts equal, max|dacc| {worst:.3g}",
+          flush=True)
     return worst
 
 
@@ -1685,15 +1896,16 @@ def ewald_path(dev, card: str, wiring: str = "newton_yukawa",
                profile: bool = True):
     """Slice 4a's path: the box path's IC, cosmology, softening and
     `wiring` without PMGRID, the geometric opening criterion (theta 0.5),
-    EWALD_STEPS steps with FORCETEST.  Returns its K1 launch count, the inputs
-    of every launch of a full pass after the steps, and the largest |acc|
-    difference of those launches from the twin.  Phase 13c runs it with the
+    EWALD_STEPS steps with FORCETEST; then every K1 launch of a fresh
+    solver's settling pass against the twin, the walk attempts that
+    overflowed included.  Returns its K1 launch count, the inputs of the
+    settled attempt's launches, and the largest |acc| difference of the
+    pass's launches from the twin.  Phase 13c runs it with the
     stock wiring (one Newton law: K1c).  Then phase 14 on the final state
     (the instance with the potential, RMS_POT_EWALD[wiring])."""
     from ngravs_tpu_torch.config import read_parameter_file
     from ngravs_tpu_torch.integrate.runner import Simulation
     from ngravs_tpu_torch.ops import lattice
-    from ngravs_tpu_torch.ops.pairwise import pairwise_eval
     run_dir = os.path.join(ROOT, "build", "chip_smoke_ewald_" + wiring)
     os.makedirs(run_dir, exist_ok=True)
     ft_path = os.path.join(run_dir, "forcetest.txt")
@@ -1736,11 +1948,10 @@ def ewald_path(dev, card: str, wiring: str = "newton_yukawa",
         raise AssertionError(f"{label}: momentum rate {mom}")
     stamp(f"{label} run")
 
-    launched = []
-    solver = pass_solver(sim)
-    full_force_pass(sim, solver, record_launches(pairwise_eval, launched))
-    stamp(f"{label}: a pass recorded")
-    worst = check_every_launch(f"{label} pass", launched)
+    launched, attempts = [], []
+    solver = pass_solver(sim, launched=launched, attempts=attempts)
+    stamp(f"{label}: the settling pass recorded")
+    worst = check_every_launch(f"{label} settling pass", launched, attempts)
     stamp(f"{label}: every launch against the twin")
     if profile:
         # the targets of a sixteenth of the box: the profiler's processing
@@ -1750,7 +1961,7 @@ def ewald_path(dev, card: str, wiring: str = "newton_yukawa",
     potential_pass(sim, card, label, instance + "/pot",
                    {"periodic": RMS_POT_EWALD[wiring]})
     sim.close()
-    return launches, launched, worst
+    return launches, settled_launches(launched, attempts), worst
 
 
 # --------------------------------------------------------------------------
@@ -3238,10 +3449,10 @@ def open_law_path(dev, card: str, label: str, instance: str, wiring: str,
           + ", ".join(f"{k} {v:.2f}" for k, v in sim.cpu_timers.items()),
           flush=True)
 
-    launched = []
+    launched, attempts = [], []
     solver = pass_solver(sim)
-    acc_t, pass_s = full_force_pass(sim, solver,
-                                    record_launches(pairwise_eval, launched))
+    with record_attempts(solver, launched, attempts):
+        acc_t, pass_s = full_force_pass(sim, solver, solver.pair_eval)
     p = sim.p
     fsoft = torch.as_tensor(sim.force_soft, device=dev)[p.ptype.long()]
     acc_d, _ = direct_forces(sim.wiring, p.pos, p.mass, p.grav, fsoft,
@@ -3278,7 +3489,7 @@ def open_law_path(dev, card: str, label: str, instance: str, wiring: str,
         if not rms_off[1] > rms[1]:
             raise AssertionError(f"{label}: the accumulator made the BAM "
                                  f"targets no better: {rms} vs off {rms_off}")
-    worst = check_every_launch(f"{label} pass", launched)
+    worst = check_every_launch(f"{label} pass", launched, attempts)
     potential_pass(sim, card, label, instance + "/pot", {"open": pot_bounds
                    or {0: RMS_POT_OPEN, 1: RMS_POT_OPEN}})
     sim.close()
@@ -3291,13 +3502,15 @@ def three_species_path(dev, card: str, label: str = "13d three species"):
     diagonal, Yukawa across), PMGRID 128 interlaced, LAW_BOX_STEPS steps
     with FORCETEST on the PM steps (rms < RMS_TREEPM), slice 3's gas-state
     gates and the momentum rate; PM's nine pair rounds and the SPH passes
-    timed; every K1 launch of a full short-range pass against the twin.
-    Returns (K1bcd launches, the pass's launches, the largest |acc|
-    difference from the twin)."""
+    timed; every K1 launch of a fresh solver's settling short-range pass
+    against the twin, the walk attempts that overflowed included (and,
+    when no recorded pass of the script has overflowed yet, of a pass with
+    the chunk cap cut to OVERFLOW_CHUNK_CAP).  Returns (K1bcd launches, the
+    settled attempt's launches, the largest |acc| difference from the
+    twin)."""
     from ngravs_tpu_torch.config import read_parameter_file
     from ngravs_tpu_torch.integrate.runner import Simulation
     from ngravs_tpu_torch.ops import lattice
-    from ngravs_tpu_torch.ops.pairwise import pairwise_eval
     run_dir = os.path.join(ROOT, "build", "chip_smoke_three")
     os.makedirs(run_dir, exist_ok=True)
     ft_path = os.path.join(run_dir, "forcetest.txt")
@@ -3367,12 +3580,28 @@ def three_species_path(dev, card: str, label: str = "13d three species"):
           + (f"{box_ms:.2f} ms" if box_ms else "not run"), flush=True)
     stamp(f"{label} run")
 
-    launched = []
-    solver = pass_solver(sim)
-    full_force_pass(sim, solver, record_launches(pairwise_eval, launched))
-    worst = check_every_launch(f"{label} pass", launched)
+    launched, attempts = [], []
+    pass_solver(sim, launched=launched, attempts=attempts)
+    worst = check_every_launch(f"{label} settling pass", launched, attempts)
+    settled = settled_launches(launched, attempts)
+    if not OVERFLOW_CHECKED["launches"]:
+        # no recorded pass overflowed: one whose caps are cut, so that it
+        # does
+        from ngravs_tpu_torch.ops.solver import GravitySolver
+        solver = GravitySolver(sim.cfg, sim.wiring, sim.force_soft,
+                               sim.units.G, hubble=sim.units.hubble,
+                               device=sim.device)
+        solver.fcaps["chunk"] = OVERFLOW_CHUNK_CAP
+        cut, cut_attempts = [], []
+        with record_attempts(solver, cut, cut_attempts):
+            solver.compute(all_active(sim), sim.ti_current, sim.p.n)
+        worst = max(worst, check_every_launch(
+            f"{label} pass, chunk cap cut to {OVERFLOW_CHUNK_CAP}", cut,
+            cut_attempts))
+        if not OVERFLOW_CHECKED["launches"]:
+            raise AssertionError(f"{label}: no recorded pass overflowed")
     sim.close()
-    return n_inst, launched, worst
+    return n_inst, settled, worst
 
 
 def law_matrix(dev, card: str, path_counts: dict) -> list:
@@ -3479,16 +3708,15 @@ def potential_pass(sim, card: str, label: str, instance, gate: dict):
     from ngravs_tpu_torch.ops import lattice, pairwise
     t_start = time.perf_counter()
     p = sim.p
-    launched = []
-    sim.solver.pair_eval = record_launches(pairwise.pairwise_eval, launched)
+    launched, attempts = [], []
     pairwise.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sim.update_full_potential()
+    with record_attempts(sim.solver, launched, attempts):
+        sim.update_full_potential()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = dict(pairwise.pairwise_eval.counts)
-    sim.solver.pair_eval = pairwise.pairwise_eval
     n_pot = counts.get(instance, 0) if instance else 0
     if instance and n_pot <= 0:
         raise AssertionError(f"{label}: the potential pass never launched "
@@ -3532,7 +3760,8 @@ def potential_pass(sim, card: str, label: str, instance, gate: dict):
         if not max(e for _, _, e in errs) < gate["periodic"]:
             raise AssertionError(f"{label}: periodic potential rule {errs}")
     if launched:
-        worst = check_every_launch(f"{label} potential pass", launched)
+        worst = check_every_launch(f"{label} potential pass", launched,
+                                   attempts)
         batch = check_largest_launch(f"kernel ({label} potential batch)",
                                      launched)
         PHASE14["entries"].append(kernel_entry(

@@ -9,8 +9,10 @@
 // block's packed source list of the law wired to (target gravity, source
 // gravity), with Gadget's cubic-spline softening below h = max(target
 // fsoft, source soft) and law / r above it.  Padding rows (gid -1) and self
-// pairs are masked by a select; node rows (gid -2) count.  Outputs are the
-// acceleration (G = 1), the optional potential and the valid-pair count.
+// pairs are masked by a select; node rows (gid -2) count, and so does a
+// pair whose gravities match no slot of a multi-law wiring, which takes no
+// law.  Outputs are the acceleration (G = 1), the optional potential and
+// the valid-pair count.
 //
 // Layout: targets are 7 columns of n_blocks * group entries (x, y, z, mass,
 // grav i32, fsoft, gid i32).  Sources are [n_blocks, 8, s_cap] f32 with rows
@@ -66,7 +68,11 @@
 // GalaxyCollision path's largest launch (one Newton law; S = 32768, 18.5M
 // pairs) 0.324 ms against 3.009 ms; the synthetic instances at S = 4096
 // 0.15 to 0.33 ms against 1.02 to 3.17 ms.  That is 2 to 5% of the bound
-// of the operations the pairs need over the card's FP32 peak.
+// of the operations the pairs need over the card's FP32 peak.  Rounding
+// r^2 once an operation, where nvcc had contracted it into fused
+// multiply-adds, cost 0 to 6% on the TreePM instances' largest launches
+// and nothing on K1a (tools/port_studies/overflow_launches.py --ab, in
+// turns against the contracted source).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -489,6 +495,7 @@ pairwise_kernel(const __grid_constant__ KernelArgs a) {
   const int rank = static_cast<int>(cluster.block_rank());
   const int b = blockIdx.x / C;
   const int ng = MULTI_LAW ? a.table.n_gravs : 1;
+  const int n_laws = MULTI_LAW ? a.table.n_laws : 1;
 
   // this rank's part of the block's live rows, cut on multiples of 4
   const int ns = min(max(a.n_src[b], 0), s_cap);
@@ -538,11 +545,14 @@ pairwise_kernel(const __grid_constant__ KernelArgs a) {
   const int gid = a.tgid[ti];
   // a padding target (gid -1) has no valid pair: its lane skips the rows
   const int k0 = gid >= 0 && !spare ? lane : TILE;
+  // the target's row of the law table; -1 for a gravity the wiring has no
+  // slot for, whose pairs take no law (the clamp above only orders threads)
   float tm = 0.0f;
-  int trow = 0;
+  int trow = -1;
   if (MULTI_LAW) {
     tm = a.tmass[ti];
-    trow = min(max(a.tgrav[ti], 0), ng - 1) * ng;
+    const int tg = a.tgrav[ti];
+    trow = tg >= 0 && tg < ng ? tg * ng : -1;
   }
 
   float ax = 0.0f, ay = 0.0f, az = 0.0f, pp = 0.0f;
@@ -564,12 +574,20 @@ pairwise_kernel(const __grid_constant__ KernelArgs a) {
       float dy = st[TILE + k] - y;
       float dz = st[2 * TILE + k] - z;
       if (PERIODIC) {
-        // minimum image, rounding half to even like jnp.round
+        // minimum image, rounding half to even like jnp.round; box times
+        // a small integer is exact, so a fused multiply-add here changes
+        // no bit
         dx = dx - a.box * rintf(dx * a.inv_box);
         dy = dy - a.box * rintf(dy * a.inv_box);
         dz = dz - a.box * rintf(dz * a.inv_box);
       }
-      const float r2 = dx * dx + dy * dy + dz * dz;
+      // r^2 rounded once an operation, as the Pallas source and the twin
+      // write it: the _rn intrinsics are never contracted into a fused
+      // multiply-add.  The TreePM cut at u = 3 is a jump, and a contraction
+      // moves r^2 by an ulp, enough to put a pair on the cut's other side
+      // (13d's overflowing attempts met such pairs)
+      const float r2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                                 __fmul_rn(dz, dz));
       const float r = sqrtf(r2);
       const float h = fmaxf(hf, st[4 * TILE + k]);
       const float sm = st[3 * TILE + k];
@@ -587,11 +605,15 @@ pairwise_kernel(const __grid_constant__ KernelArgs a) {
         int kind = KIND_NEWTON;
         const float* par = s_par;
         if (MULTI_LAW) {
-          const int sg = min(max(__float_as_int(st[R_GRAV * TILE + k]), 0),
-                             ng - 1);
-          const int li = s_slot[trow + sg];
-          kind = s_kind[li];
-          par = s_par + 4 * li;
+          // as the Pallas kernel's masks: one law takes every pair; among
+          // several, a pair whose (target, source) gravity matches no slot
+          // takes none, and still counts
+          const int sg = __float_as_int(st[R_GRAV * TILE + k]);
+          const int li = n_laws == 1 ? 0
+                         : (trow >= 0 && sg >= 0 && sg < ng ? s_slot[trow + sg]
+                                                            : -1);
+          kind = li >= 0 ? s_kind[li] : KIND_NONE;
+          par = s_par + 4 * max(li, 0);
         }
         law_pair<WANT_POT, TREEPM>(
             kind, par, tm, sm, r2, r, h,

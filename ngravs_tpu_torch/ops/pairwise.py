@@ -269,10 +269,14 @@ def pairwise_eval_torch(targets: dict, spacked: torch.Tensor,
                         n_src: torch.Tensor, want_pot: bool = True, *,
                         wiring=None, box_size: float = 0.0,
                         accumulator: bool | None = None,
-                        treepm_asmth: float = 0.0):
+                        treepm_asmth: float = 0.0, with_scale: bool = False):
     """Plain PyTorch twin of the kernel: the same masks and laws, the law
     groups dispatched by (target, source) gravity masks as the JAX kernel
-    does, evaluated as [B, G, slice] tiles (any device)."""
+    does, evaluated as [B, G, slice] tiles (any device).  `with_scale`
+    also returns each target's sums over its valid pairs of |fac*dx|,
+    |fac*dy|, |fac*dz| and |pot term| ([B*G, 4]; the last 0 without
+    want_pot): the scale of a check against K1, whose sums run in another
+    order."""
     groups = wiring.unique_laws() if wiring is not None \
         else [(_NEWTON, [(0, 0)])]
     use_count = (wiring is not None and wiring.accumulator) \
@@ -287,6 +291,8 @@ def pairwise_eval_torch(targets: dict, spacked: torch.Tensor,
     acc = torch.zeros(nb, g, 3, dtype=torch.float32, device=dev)
     pot = torch.zeros(nb, g, dtype=torch.float32, device=dev)
     nia = torch.zeros(nb, g, dtype=torch.int32, device=dev)
+    scale = torch.zeros(nb, g, 4, dtype=torch.float32, device=dev) \
+        if with_scale else None
     for c0 in range(0, s, _TWIN_SLICE):
         cs = slice(c0, min(c0 + _TWIN_SLICE, s))
         sp = spacked[:, :, cs]
@@ -321,12 +327,19 @@ def pairwise_eval_torch(targets: dict, spacked: torch.Tensor,
                     pf = torch.where(mk, p_k, pf)
         # masked by a select: an invalid pair's factor or offset may be
         # inf/NaN
-        acc += torch.stack([torch.sum(torch.where(valid, fac * x, 0.0),
-                                      dim=-1) for x in d], dim=-1)
+        terms = [torch.where(valid, fac * x, 0.0) for x in d]
+        acc += torch.stack([torch.sum(t, dim=-1) for t in terms], dim=-1)
         if want_pot:
-            pot += torch.sum(torch.where(valid, pf, 0.0), dim=-1)
+            pt = torch.where(valid, pf, 0.0)
+            pot += torch.sum(pt, dim=-1)
         nia += torch.sum(valid, dim=-1, dtype=torch.int32)
-    return acc.reshape(bg, 3), pot.reshape(bg), nia.reshape(bg)
+        if with_scale:
+            scale[..., :3] += torch.stack(
+                [torch.sum(t.abs(), dim=-1) for t in terms], dim=-1)
+            if want_pot:
+                scale[..., 3] += torch.sum(pt.abs(), dim=-1)
+    out = (acc.reshape(bg, 3), pot.reshape(bg), nia.reshape(bg))
+    return out + (scale.reshape(bg, 4),) if with_scale else out
 
 
 _T_DTYPES = dict(x=torch.float32, y=torch.float32, z=torch.float32,

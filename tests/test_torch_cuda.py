@@ -993,3 +993,304 @@ def test_distributed_gas_steps_over_nccl_match_cpu(cuda, tmp_path):
             a, b = want[k][:n], got[k][:n]
             assert (np.abs(a - b) <= 1e-5 * np.abs(a) + 1e-30).all(), \
                 (mode, k)
+
+
+# --------------------------------------------------------------------------
+# K1 on the inputs of walk attempts that overflow: rows at the TreePM cut,
+# gravities without a slot, every block's list full at the path's plan,
+# and every launch of a fresh solver's overflowing first attempts
+# --------------------------------------------------------------------------
+
+CUT_ASMTH = 1.25 * BOX / 32
+
+
+def _r2_roundings(dx, dy, dz):
+    """r^2 of f32 offsets rounded once an operation, as the Pallas source
+    and the twin write it, and contracted into fused multiply-adds as a
+    compiler may (each fma emulated in float64, its product exact)."""
+    f32, x = np.float32, lambda a: a.astype(np.float64)
+    sq = [(v * v).astype(f32) for v in (dx, dy, dz)]
+    xy = (x(dx) * x(dx) + x(sq[1])).astype(f32)
+    return dict(per_op=((sq[0] + sq[1]).astype(f32) + sq[2]).astype(f32),
+                fma_dz=(x(dz) * x(dz) + x(xy)).astype(f32),
+                fma_add=(x(xy) + x(sq[2])).astype(f32))
+
+
+def _inside_cut(r2, asmth=CUT_ASMTH):
+    """u = r / (2 asmth) < 3, in f32 as K1 and the twin compute it."""
+    inv2a = np.float32(0.5 / asmth)
+    return (np.sqrt(r2).astype(np.float32) * inv2a).astype(np.float32) < 3
+
+
+def cut_pairs(nb=8, group=8, s=64, seed=0, n_gravs=3):
+    """K1bcd-shaped inputs (the periodic box BOX, asmth CUT_ASMTH) whose
+    source rows all lie within a few ulps of the TreePM cut u = 3 of their
+    block's targets, each at an r^2 that one rounding an operation puts
+    on one side of the cut and a fused multiply-add contraction
+    (fma(dz, dz, fma(dx, dx, dy^2)) or fma(dx, dx, dy^2) + dz^2) on the
+    other.  A block's targets sit at one point.  Returns the targets, the
+    sources, n_src (all S) and, per row, whether one rounding an
+    operation puts it inside the cut."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    r0 = 3.0 / float(np.float32(0.5 / CUT_ASMTH))
+    centre = rng.uniform(0.3 * BOX, 0.7 * BOX, (nb, 3)).astype(f32)
+    src = np.zeros((nb, s, 3), f32)
+    inside = np.zeros((nb, s), bool)
+    for b in range(nb):
+        got = 0
+        while got < s:
+            u = rng.normal(size=(20000, 3))
+            u /= np.linalg.norm(u, axis=1, keepdims=True)
+            rad = r0 * (1 + rng.uniform(-4e-7, 4e-7, 20000))
+            cand = (centre[b] + u * rad[:, None]).astype(f32)
+            d = (cand - centre[b]).astype(f32)
+            ins = {k: _inside_cut(v) for k, v in
+                   _r2_roundings(d[:, 0], d[:, 1], d[:, 2]).items()}
+            amb = np.nonzero((ins["per_op"] != ins["fma_dz"])
+                             | (ins["per_op"] != ins["fma_add"]))[0]
+            take = amb[:s - got]
+            src[b, got:got + len(take)] = cand[take]
+            inside[b, got:got + len(take)] = ins["per_op"][take]
+            got += len(take)
+    sgid = np.where(rng.uniform(size=(nb, s)) < 0.5, -2,
+                    rng.integers(nb * group, 10 * nb * group, (nb, s)))
+    sp = np.zeros((nb, 8, s), f32)
+    sp[:, 0:3] = src.transpose(0, 2, 1)
+    sp[:, FMASS] = rng.uniform(0.5, 2.0, (nb, s))
+    sp[:, FSOFT] = 0.1
+    sp[:, 5] = 1.0
+    sp[:, 6] = rng.integers(0, n_gravs, (nb, s)).astype(np.int32) \
+        .view(f32)
+    sp[:, IGID] = sgid.astype(np.int32).view(f32)
+    col = lambda a, dt=f32: torch.as_tensor(
+        np.ascontiguousarray(a, dt).reshape(nb * group, 1))
+    rep = lambda k: np.repeat(centre[:, None, k], group, axis=1)
+    targets = dict(x=col(rep(0)), y=col(rep(1)), z=col(rep(2)),
+                   mass=col(rng.uniform(0.5, 2, (nb, group))),
+                   grav=col(rng.integers(0, n_gravs, (nb, group)), np.int32),
+                   fsoft=col(np.full((nb, group), 0.1)),
+                   gid=col(np.arange(nb * group).reshape(nb, group),
+                           np.int32))
+    return targets, torch.as_tensor(sp), \
+        torch.full((nb, 1), s, dtype=torch.int32), inside
+
+
+def _one_row_a_block(targets, sp, n_src):
+    """Each source row of a launch as a block of its own (the row padded
+    to 4 columns with gid -1), with its block's targets: the output of a
+    block is then that row's term alone."""
+    nb, _, s = sp.shape
+    g = targets["x"].shape[0] // nb
+    one = torch.zeros(nb * s, 8, 4)
+    one[:, :, 0] = sp.permute(0, 2, 1).reshape(nb * s, 8)
+    one.view(torch.int32)[:, IGID, 1:] = -1
+    tg = {k: v.reshape(nb, 1, g).expand(nb, s, g).reshape(nb * s * g, 1)
+          .contiguous() for k, v in targets.items()}
+    return tg, one, torch.ones(nb * s, 1, dtype=torch.int32)
+
+
+def _three_species_kw():
+    w = build_wiring(SimulationConfig(
+        n_gravs=3, type_to_grav=(0, 0, 1, 2, 0, 0), wiring="three_species",
+        box_size=BOX, periodic=True, pmgrid=32))
+    return w, dict(wiring=w, box_size=BOX, treepm_asmth=CUT_ASMTH)
+
+
+@pytest.mark.parametrize("want_pot", [True, False])
+def test_k1_puts_cut_rows_on_the_twins_side(cuda, want_pot):
+    """Rows within an ulp of the TreePM cut, where a fused multiply-add in
+    r^2 changes the side (13d's overflowing attempts met such rows: a
+    list cut to far rows makes their terms count): K1bcd and the twin
+    agree within 1e-5 of each target's sum of |terms|, and, each row
+    alone, take the same rows inside the cut, those that one rounding an
+    operation takes."""
+    w, kw = _three_species_kw()
+    targets, sp, n_src, inside = cut_pairs()
+    assert inside.any() and not inside.all()
+    dev = lambda t: {k: v.to(cuda) for k, v in t.items()}
+    a, p, n = pairwise_eval(dev(targets), sp.to(cuda), n_src.to(cuda),
+                            want_pot, **kw)
+    at, pt, nt = pairwise_eval_torch(targets, sp, n_src, want_pot, **kw)
+    scale = _k1_terms(w, targets, sp, n_src, BOX, CUT_ASMTH, False)
+    assert bool(((a.cpu() - at).abs() <= RTOL_TERMS * scale[:, :3]).all())
+    if want_pot:
+        assert bool(((p.cpu() - pt).abs() <= RTOL_TERMS * scale[:, 3]).all())
+    assert torch.equal(n.cpu(), nt)
+    tg, one, ns = _one_row_a_block(targets, sp, n_src)
+    a1, _, _ = pairwise_eval(dev(tg), one.to(cuda), ns.to(cuda), want_pot,
+                             **kw)
+    at1, _, _ = pairwise_eval_torch(tg, one, ns, want_pot, **kw)
+    hit = lambda x: (x.reshape(sp.shape[0], sp.shape[2], -1, 3) != 0) \
+        .any(-1).any(-1)
+    assert torch.equal(hit(a1.cpu()), hit(at1))
+    assert torch.equal(hit(at1), torch.as_tensor(inside))
+
+
+def _no_slot_inputs(ng, seed):
+    targets, sp, n_src = _inputs(seed=seed)
+    rng = np.random.default_rng(seed)
+    sgrav = rng.integers(-2, ng + 2, (NB, S)).astype(np.int32)
+    tgrav = rng.integers(-2, ng + 2, (NB * G, 1)).astype(np.int32)
+    sp[:, 6] = torch.as_tensor(sgrav.view(np.float32))
+    sp[:, 5] = torch.as_tensor(rng.integers(1, 9, (NB, S))
+                               .astype(np.float32))
+    targets["grav"] = torch.as_tensor(tgrav)
+    return targets, sp, n_src
+
+
+@pytest.mark.parametrize("case", ["three_species_periodic_treepm",
+                                  "newton_yukawa", "bam_accumulator",
+                                  "one_yukawa_law"])
+def test_k1_gives_no_law_to_a_gravity_without_a_slot(cuda, case):
+    """Target and source gravities outside [0, N_GRAVS): among several
+    laws, a pair whose gravities match no slot of the wiring takes no law
+    and still counts, as the Pallas kernel's masks do
+    (pairwise_pallas.py:135-146); one law takes every pair, as there."""
+    if case == "one_yukawa_law":
+        y = L.Yukawa(2.0, BOX)
+        w = GravityWiring([[y, y], [y, y]])
+        ng, periodic, treepm, acc = 2, False, False, False
+    else:
+        wname, ng, periodic, treepm, acc = K1_CASES[case]
+        w = build_wiring(SimulationConfig(
+            n_gravs=ng, type_to_grav=(0, 0, min(1, ng - 1), 0, 0, 0),
+            wiring=wname, box_size=BOX, periodic=periodic,
+            pmgrid=32 if treepm else 0, ngravs_accumulator=acc))
+    box = BOX if periodic else 0.0
+    asmth = CUT_ASMTH if treepm else 0.0
+    kw = dict(wiring=w, box_size=box, treepm_asmth=asmth)
+    assert tpw.instance_flags(want_pot=True, **kw) & tpw.F_MULTI
+    targets, sp, n_src = _no_slot_inputs(ng, seed=21)
+    dev = lambda t: {k: v.to(cuda) for k, v in t.items()}
+    a, p, n = (x.cpu() for x in pairwise_eval(
+        dev(targets), sp.to(cuda), n_src.to(cuda), True, **kw))
+    at, pt, nt = pairwise_eval_torch(targets, sp, n_src, True, **kw)
+    one_law = len(w.unique_laws()) == 1
+    # the scale's masks: the slots, or for one law every pair
+    clamp = lambda t, s_: (t, s_) if not one_law else (
+        dict(t, grav=t["grav"].clamp(0, ng - 1)),
+        torch.cat([s_[:, :6], s_[:, 6:7].view(torch.int32).clamp(0, ng - 1)
+                   .view(torch.float32), s_[:, 7:]], 1))
+    scale = _k1_terms(w, *clamp(targets, sp), n_src, box, asmth, acc)
+    assert bool(((a - at).abs() <= RTOL_TERMS * scale[:, :3]).all())
+    assert bool(((p - pt).abs() <= RTOL_TERMS * scale[:, 3]).all())
+    assert torch.equal(n, nt)
+    # the same launch with the rows of gravities without a slot padding:
+    # the sums do not move, the counts lose exactly those pairs
+    sg = sp[:, 6].view(torch.int32)
+    off = (sg < 0) | (sg >= ng)
+    sp_off = sp.clone()
+    sp_off.view(torch.int32)[:, IGID] = torch.where(
+        off, -1, sp.view(torch.int32)[:, IGID])
+    tg_off = dict(targets)
+    a2, _, n2 = (x.cpu() for x in pairwise_eval(
+        dev(tg_off), sp_off.to(cuda), n_src.to(cuda), True, **kw))
+    tgr = targets["grav"].reshape(NB, G)
+    t_off = ((tgr < 0) | (tgr >= ng)).reshape(-1)
+    if one_law:
+        assert float((a - a2).abs().max()) > 0    # those rows did pull
+    else:
+        rows_ok = ~t_off[:, None]
+        assert bool(((a - a2).abs() <= RTOL_TERMS * scale[:, :3])
+                    [rows_ok.expand(-1, 3)].all())
+        assert not bool(a[t_off].any()) and not bool(p[t_off].any())
+    assert bool((n - n2 >= 0).all()) and int((n - n2).sum()) > 0
+    assert bool(n[t_off].sum() > 0)                # and they counted
+
+
+def test_k1_full_blocks_on_tree_geometry(cuda):
+    """The path's own plan (S = 8192, groups of 64: 8 lanes, a cluster of
+    4, tiles of 256) with every block's list full, n_src == S, as an
+    overflowing attempt hands it over, on a tree's rows (node rows near
+    and at the targets, self rows, leaf chunks): a TreePM walk of a
+    clumped three-species box with the chunk cap at 1024 and a geometric
+    opening of theta 0.1, which asks each block for more.  Every K1bcd
+    launch against the twin."""
+    rng = np.random.default_rng(8)
+    n, box, depth = 16384, BOX, 8
+    pos = np.mod(box / 2 + rng.normal(0, 2.0, (n, 3)), box).astype(
+        np.float32)
+    grav = rng.integers(0, 3, n).astype(np.int32)
+    w = build_wiring(SimulationConfig(
+        n_gravs=3, type_to_grav=(0, 0, 1, 2, 0, 0), wiring="three_species",
+        box_size=box, periodic=True, pmgrid=16))
+    asmth = 1.25 * box / 16
+    tree = ttree.build_tree(
+        torch.as_tensor(pos, device=cuda),
+        torch.full((n,), 1.0, device=cuda),
+        torch.as_tensor(grav, device=cuda), torch.full((n,), 0.02,
+                                                        device=cuda),
+        torch.full((n,), 1e-3, device=cuda), depth=depth, n_gravs=3,
+        bucket=16, box_size=box)
+    launched = []
+
+    def record(targets, sp, n_src, want_pot, **kw):
+        launched.append((targets, sp, n_src, want_pot, kw))
+        return pairwise_eval(targets, sp, n_src, want_pot, **kw)
+    walk = twalk.make_fused_walk(
+        w, 3, depth=depth, bucket=16, group_size=64, batch_blocks=128,
+        chunk_cap=1024, frontier_cap=8 ** 6, theta=0.1, opening="bh",
+        box_size=box, want_pot=False,
+        treepm=dict(asmth=asmth, rcut=4.5 * asmth), pair_eval=record)
+    res = walk(tree, torch.arange(n, dtype=torch.int32, device=cuda))
+    assert bool(res.overflow) and launched
+    plan = tpw.launch_plan(64, 8192, tpw.instance_flags(
+        w, box, None, asmth, False))
+    assert (plan.lanes, plan.cluster, plan.tile) == (8, 4, 256)
+    for targets, sp, n_src, want_pot, kw in launched:
+        assert sp.shape[2] == 8192
+        live = (targets["gid"].reshape(sp.shape[0], 64) >= 0).any(1)
+        assert bool((n_src.reshape(-1)[live] == 8192).all())
+        a, _, nv = pairwise_eval(targets, sp, n_src, want_pot, **kw)
+        at, _, nt = pairwise_eval_torch(targets, sp, n_src, want_pot, **kw)
+        scale = _k1_terms(w, targets, sp, n_src, box, asmth, False)
+        assert bool(((a - at).abs() <= RTOL_TERMS * scale[:, :3]).all())
+        assert torch.equal(nv, nt)
+
+
+def _smoke():
+    """chip_smoke.py, the script beside the tests (its IC writers and its
+    every-launch check)."""
+    import importlib
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
+@pytest.mark.parametrize("box", ["three_species_gas", "open"])
+def test_fresh_solver_overflowing_attempts_match_twin(cuda, box, tmp_path):
+    """A fresh solver's pass after one step, its chunk cap at 64 and its
+    frontier caps at 64 a level, so that its first attempts overflow and
+    are thrown away: phase 13d's box at 3 x 16^3 (three species with gas,
+    PMGRID 32) and slice 1's open box at 12k.  Every K1 launch of every
+    attempt against the twin (chip_smoke's check: within 1e-5 of each
+    target's sum of |terms|, pair counts equal)."""
+    from ngravs_tpu_torch.config import read_parameter_file
+    from ngravs_tpu_torch.ops.solver import GravitySolver
+    cs = _smoke()
+    if box == "open":
+        cfg = read_parameter_file(cs.write_galaxy_collision(
+            str(tmp_path), npart=(0, 2000, 4000, 2000, 2000, 2000)),
+            direct_crossover=1000, tree_depth=12)
+    else:
+        cfg = read_parameter_file(
+            cs.write_gas_box(str(tmp_path), ns=16, name="three", three=True),
+            pmgrid=32, n_gravs=3, wiring="three_species", pm_interlace=True)
+    sim = Simulation(cfg, device=cuda)
+    sim.run(max_steps=1)
+    solver = GravitySolver(sim.cfg, sim.wiring, sim.force_soft, sim.units.G,
+                           hubble=sim.units.hubble, device=sim.device)
+    solver.fcaps["chunk"] = 64
+    solver.fcaps["frontier"] = 64
+    launched, attempts = [], []
+    with cs.record_attempts(solver, launched, attempts):
+        solver.compute(cs.all_active(sim), sim.ti_current, sim.p.n)
+    assert cs.overflowing(attempts) > 0 and not attempts[-1][2]
+    for launch in launched:
+        _, bad, _ = cs.compare_launch(*launch)
+        assert not bool(bad.any())
+    sim.close()
