@@ -266,8 +266,8 @@ FORCETEST_FRAC = 2.0 ** -8
 FORCETEST_ROWS = 2048
 RMS_EWALD, RMS_TABULATED = 0.25, 3e-2
 MOMENTUM_RATE = 1e-3
-# the port's torch.profiler ranges (not kernels)
-RANGES = ("sph_density", "sph_hydro", "lattice_pass")
+# the port's torch.profiler ranges (its trace's spans, not kernels)
+RANGE_PREFIX = "ngravs."
 # slices 4a (periodic pure tree, Ewald) and 4b (tabulated TreePM)
 EWALD_STEPS = 1
 TAB_STEPS = 1
@@ -838,7 +838,8 @@ def profile_pass(sim, solver, card: str, label: str, with_pm: bool = False,
                                getattr(e, "self_cuda_time_total", 0.0))
     # kernels only: a record_function range has a device-side event too
     kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.key not in RANGES]
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith(RANGE_PREFIX)]
     k1 = [e for e in kern if "pairwise_kernel" in e.key]
     busy_ms = sum(dev_us(e) for e in kern) / 1e3
     k1_ms = sum(dev_us(e) for e in k1) / 1e3
@@ -866,17 +867,27 @@ def range_ms(prof, name: str) -> float:
                if e.name == name and e.device_type == DeviceType.CPU) / 1e3
 
 
+def k1_since(trace, before=None) -> dict:
+    """K1's launches by instance in `trace` (`sim.trace`) since `before`,
+    an earlier `instance_counts(trace)`."""
+    from ngravs_tpu_torch.ops.pairwise import instance_counts
+    before = before or {}
+    return {k: v - before.get(k, 0)
+            for k, v in instance_counts(trace).items()
+            if v > before.get(k, 0)}
+
+
 def run_path(sim, steps: int):
-    """Drive `sim.run` with every K1 count set to 0 just before; returns
-    (steps, wall seconds, {instance: launches})."""
-    from ngravs_tpu_torch.ops import pairwise
-    pairwise.reset_counts()
+    """Drive `sim.run`; returns (steps, wall seconds, {instance: launches
+    in the run})."""
+    from ngravs_tpu_torch.ops.pairwise import instance_counts
+    before = instance_counts(sim.trace)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     n = sim.run(max_steps=steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return n, wall, dict(pairwise.pairwise_eval.counts)
+    return n, wall, k1_since(sim.trace, before)
 
 
 def forcetest_steps(path: str):
@@ -1714,8 +1725,8 @@ def profile_gas_step(sim, card: str, launched):
     the profiler's processing of a whole step's 227k kernels took most of
     a minute and a half on the H100's host) under torch.profiler: CUDA
     kernels, the device's busy share, and K1's, the density passes' and
-    the hydro pass's shares of device time (the `sph_density` /
-    `sph_hydro` ranges).  Its K1 launches are kept in `launched`."""
+    the hydro pass's shares of device time (the `ngravs.sph.density` /
+    `ngravs.sph.hydro` ranges).  Its K1 launches are kept in `launched`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from ngravs_tpu_torch.ops.pairwise import pairwise_eval
@@ -1737,10 +1748,12 @@ def profile_gas_step(sim, card: str, launched):
     events = prof.key_averages()
     # kernels only: a record_function range has a device-side event too
     kern = [e for e in events
-            if e.device_type == DeviceType.CUDA and e.key not in RANGES]
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith(RANGE_PREFIX)]
     busy_ms = sum(dev_us(e) for e in kern) / 1e3
     k1_ms = sum(dev_us(e) for e in kern if "pairwise_kernel" in e.key) / 1e3
-    rng_ms = {k: range_ms(prof, k) for k in ("sph_density", "sph_hydro")}
+    rng_ms = {k: range_ms(prof, RANGE_PREFIX + k)
+              for k in ("sph.density", "sph.hydro")}
     if busy_ms <= 0:
         print(f"profiled gas force pass (x < box/8) [{card}]: {wall_ms:.1f} "
               "ms wall; device "
@@ -1820,11 +1833,11 @@ def gas_path(dev, card: str):
     h0 = float(sim.sph.hsml[0])
     first_path = os.path.join(run_dir, "first_step.npz")
     syncs = []
-    pairwise.reset_counts()
+    k1_before = pairwise.instance_counts(sim.trace)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for k in range(GAS_STEPS):
-        before = dict(sim.cpu_timers, **sim.hydro.counts)
+        before = dict(sim.cpu_timers, **sim.trace.counts)
         sim.run(max_steps=1)
         syncs.append([sim.ti_current, sim.pm_ti_begstep, sim.pm_ti_endstep])
         if k == 0:
@@ -1834,16 +1847,16 @@ def gas_path(dev, card: str):
                      **{f: getattr(sim.sph, f)[:n_gas].cpu().numpy()
                         for f in ("density", "hsml", "hydro_accel")})
             t0 += time.perf_counter() - t_save
-        d = {k: v - before[k] for k, v in dict(sim.cpu_timers,
-                                               **sim.hydro.counts).items()}
+        d = {k: v - before.get(k, 0)
+             for k, v in dict(sim.cpu_timers, **sim.trace.counts).items()}
         print(f"gas step {sim.step_count} [{card}]: a={sim.time:.6g}, "
-              f"{d['density_iters']} density iterations, cand_cap "
+              f"{d.get('sph.density_iters', 0)} density iterations, cand_cap "
               f"{sim.hydro.cand_cap}, gravity {d['gravity']:.2f} s, hydro "
               f"{d['hydro']:.2f} s, PM {d['pm']:.2f} s, step "
               f"{d['total']:.2f} s", flush=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(pairwise.pairwise_eval.counts)
+    counts = k1_since(sim.trace, k1_before)
     launches = sum(counts.values())
     if sum(v for k, v in counts.items() if k.startswith("K1bcd")) <= 0:
         raise AssertionError(f"the gas path never launched the TreePM "
@@ -1853,7 +1866,8 @@ def gas_path(dev, card: str):
     print(f"gas path [{card}]: {GAS_STEPS} steps to a={sim.time:.6g}, "
           f"{sim.num_force_updates} particle-steps in {wall:.2f} s = "
           f"{sim.num_force_updates / wall:.1f} particle-steps/s, K1 "
-          f"launches {counts}, SPH passes {sim.hydro.counts}, PM window "
+          f"launches {counts}, SPH passes {sim.trace.prefixed('sph.')}, "
+          f"PM window "
           f"({sim.pm_ti_begstep}, {sim.pm_ti_endstep}); host seconds by "
           "phase: " + ", ".join(f"{k} {v:.2f}"
                                 for k, v in sim.cpu_timers.items()),
@@ -1957,7 +1971,7 @@ def ewald_path(dev, card: str, wiring: str = "newton_yukawa",
         # the targets of a sixteenth of the box: the profiler's processing
         # of a whole pass (321k kernels) took about 200 s on the H100's host
         profile_pass(sim, solver, card, "profiled Ewald pass (x < box/16)",
-                     ranges=("lattice_pass",), slab=0.0625)
+                     ranges=(RANGE_PREFIX + "walk.lattice",), slab=0.0625)
     potential_pass(sim, card, label, instance + "/pot",
                    {"periodic": RMS_POT_EWALD[wiring]})
     sim.close()
@@ -2283,13 +2297,10 @@ def segment_pair(label: str, make, steps: int, cap: int, card: str,
     flipped = torch.zeros(n, dtype=torch.bool, device=seg.p.pos.device)
     wall_b = wall_a = 0.0
     calls = 0
-    counts = {}
+    k1_before = pairwise.instance_counts(seg.trace)
     rows = []
     while seg.step_count < steps:
-        pairwise.reset_counts()
         k, w = drive(seg, seg.step_count + 1)
-        counts = {key: counts.get(key, 0) + v
-                  for key, v in pairwise.pairwise_eval.counts.items()}
         calls, wall_b = calls + k, wall_b + w
         while single.step_count < seg.step_count:
             wall_a += drive(single, single.step_count + 1)[1]
@@ -2319,6 +2330,7 @@ def segment_pair(label: str, make, steps: int, cap: int, card: str,
         agree = (single.p.ti_endstep == seg.p.ti_endstep) \
             & (single.p.ti_begstep == seg.p.ti_begstep)
         near = torch.where(agree, math.inf, near)
+    counts = k1_since(seg.trace, k1_before)
     probe = make(cap)
     probe.step()
     before = probe.step_count
@@ -2330,12 +2342,14 @@ def segment_pair(label: str, make, steps: int, cap: int, card: str,
     print(f"{label} [{card}]: {seg.step_count} sync points to "
           f"t={seg.time:.6g}; segmented {seg.num_force_updates} particle-"
           f"steps in {wall_b:.2f} s = {seg.num_force_updates / wall_b:.1f} "
-          f"particle-steps/s over {calls} step() calls ({seg.seg_counts}), "
+          f"particle-steps/s over {calls} step() calls "
+          f"({seg.trace.prefixed('segment.')}), "
           f"single-stepped {single.num_force_updates} in {wall_a:.2f} s = "
           f"{single.num_force_updates / wall_a:.1f} particle-steps/s; host "
           f"syncs a segment step {per_step:.1f} ({syncs} in a segment of "
           f"{probe.step_count - before} steps; the loop's own reads "
-          f"{seg.seg_counts['host_reads']} in {seg.seg_counts['steps']} "
+          f"{seg.trace.counts.get('segment.host_reads', 0)} in "
+          f"{seg.trace.counts.get('segment.steps', 0)} "
           f"steps); K1 launches segmented {counts}; tree modes (drift, "
           f"refresh, build) "
           + "".join("dfb"[m] for m in modes), flush=True)
@@ -2740,21 +2754,21 @@ def dist_drive(mesh, sim, steps: int, label: str, after=None):
     if mesh.rank == 0:
         sim.solver.pair_eval = record_largest(pairwise.pairwise_eval,
                                               largest)
-    pairwise.reset_counts()
+    k1_before = pairwise.instance_counts(sim.trace)
     syncs = []
     wall = 0.0
     for k in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if k == steps - 1:
-            mesh.reset_stats()
-            sph_s, iters = sim.sph_seconds, dict(sim.hydro.counts) \
-                if sim.hydro else {}
+            before = dict(sim.trace.counts)
+            sph_s = sim.trace.timers.get("sph", 0.0)
             host_syncs = count_host_syncs(sim.step)
-            coll = dict(mesh.stats)
-            sph_s = sim.sph_seconds - sph_s
-            iters = {k: v - iters[k] for k, v in sim.hydro.counts.items()} \
-                if sim.hydro else {}
+            d = {k: v - before.get(k, 0) for k, v in sim.trace.counts.items()}
+            coll = {"calls": d.get("mesh.calls", 0),
+                    "bytes": d.get("mesh.bytes", 0)}
+            sph_s = sim.trace.timers.get("sph", 0.0) - sph_s
+            iters = {k[4:]: v for k, v in d.items() if k.startswith("sph.")}
         else:
             sim.step()
         torch.cuda.synchronize()
@@ -2762,7 +2776,7 @@ def dist_drive(mesh, sim, steps: int, label: str, after=None):
         syncs.append(sim.ti_current)
         if after is not None:
             after(k)
-    counts = dict(pairwise.pairwise_eval.counts)
+    counts = k1_since(sim.trace, k1_before)
     sim.solver.pair_eval = pairwise.pairwise_eval
     k1 = {}
     for name, launch in largest.items():
@@ -3285,7 +3299,8 @@ def gas_job(mesh, job: dict, run_dir: str):
     out = dist_drive(mesh, sim, DIST_GAS_STEPS, job["name"], after=after)
     out.update(setup=setup, first=kept.get("vs_single"),
                ghost_rows=sim.ghost_rows, ghost_retries=sim.ghost_retries,
-               cand_cap=sim.hydro.cand_cap, sph_counts=sim.hydro.counts,
+               cand_cap=sim.hydro.cand_cap,
+               sph_counts=sim.trace.prefixed("sph."),
                forcetest=forcetest_steps(ft) if mesh.rank == 0 else [])
     pg, sg = sim.gather_ordered()
     if mesh.rank == 0:
@@ -3560,7 +3575,8 @@ def three_species_path(dev, card: str, label: str = "13d three species"):
     print(f"{label} [{card}]: {steps} steps to a={sim.time:.6g}, "
           f"{sim.num_force_updates} particle-steps in {wall:.2f} s = "
           f"{sim.num_force_updates / wall:.1f} particle-steps/s (FORCETEST "
-          f"included), K1 launches {counts}, SPH passes {sim.hydro.counts}, "
+          f"included), K1 launches {counts}, SPH passes "
+          f"{sim.trace.prefixed('sph.')}, "
           f"sph_density {sph_s['density']:.2f} s, sph_hydro "
           f"{sph_s['hydro']:.2f} s, PM window ({sim.pm_ti_begstep}, "
           f"{sim.pm_ti_endstep}), gravity momentum rate {mom:.2e}, set-up "
@@ -3709,14 +3725,14 @@ def potential_pass(sim, card: str, label: str, instance, gate: dict):
     t_start = time.perf_counter()
     p = sim.p
     launched, attempts = [], []
-    pairwise.reset_counts()
+    k1_before = pairwise.instance_counts(sim.trace)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with record_attempts(sim.solver, launched, attempts):
         sim.update_full_potential()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    counts = dict(pairwise.pairwise_eval.counts)
+    counts = k1_since(sim.trace, k1_before)
     n_pot = counts.get(instance, 0) if instance else 0
     if instance and n_pot <= 0:
         raise AssertionError(f"{label}: the potential pass never launched "

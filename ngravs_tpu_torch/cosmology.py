@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .constants import GAMMA_MINUS1, TIMEBASE
+from .trace import blocking
 
 DRIFT_TABLE_LENGTH = 1000  # reference allvars.h:95
 
@@ -27,7 +28,7 @@ DRIFT_TABLE_LENGTH = 1000  # reference allvars.h:95
 def _f32(ti, device=None) -> torch.Tensor:
     if isinstance(ti, torch.Tensor):
         return ti.to(torch.float32)
-    return torch.tensor(ti, dtype=torch.float32, device=device)
+    return blocking(torch.tensor, ti, dtype=torch.float32, device=device)
 
 
 def hubble_of_a(a, omega0, omega_lambda, hubble):
@@ -82,7 +83,7 @@ class DriftKickTables:
         u = _f32(ti, device) * (self.length / float(TIMEBASE))
         i0 = torch.clamp(u.to(torch.int32), 0, self.length - 1).long()
         frac = u - i0.to(torch.float32)
-        return t[i0] + (t[i0 + 1] - t[i0]) * frac
+        return blocking(lambda: t[i0] + (t[i0 + 1] - t[i0]) * frac)
 
     def _factor(self, k: int, ti0, ti1) -> torch.Tensor:
         dev = next((x.device for x in (ti0, ti1)

@@ -15,6 +15,7 @@ import torch
 
 from ..constants import N_TYPES
 from ..integrate.timeline import timebase_interval
+from ..trace import read
 
 
 class SysState(NamedTuple):
@@ -101,7 +102,7 @@ def compute_global_quantities(p, tables, ti_current: int, pm_window=None,
 def format_energy_line(time: float, s: SysState) -> str:
     """One energy.txt row (run.c:419-431): time, Eint, Epot, Ekin, then
     per-type (Eint, Epot, Ekin) triplets, then per-type masses — 28 columns."""
-    s = SysState(*(t.cpu() for t in s))
+    s = SysState(*(read(t) for t in s))
     cols = [time, float(s.energy_int), float(s.energy_pot), float(s.energy_kin)]
     for t in range(N_TYPES):
         cols += [float(s.energy_int_comp[t]), float(s.energy_pot_comp[t]),

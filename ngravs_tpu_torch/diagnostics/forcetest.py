@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..ops.direct import direct_forces
+from ..trace import read
 
 
 def force_test(sim, fraction: float | None = None, seed: int = 42,
@@ -64,21 +65,21 @@ def force_test(sim, fraction: float | None = None, seed: int = 42,
         tgt_idx=torch.as_tensor(idx, device=dev), box=box,
         chunk=max(1, min(1024, (1 << 24) // n)), want_pot=False,
         lattice_tables=lat)
-    acc_d = (acc_d * sim.units.G).cpu().numpy()
+    acc_d = read(acc_d * sim.units.G).numpy()
 
     sel = torch.as_tensor(idx, device=dev).long()
     acc_s = p.accel[sel]
     if cfg.pmgrid:
         acc_s = acc_s + p.accel_pm[sel]
-    acc_s = acc_s.cpu().numpy()
+    acc_s = read(acc_s).numpy()
     num = np.linalg.norm(acc_s - acc_d, axis=1)
     den = np.maximum(np.linalg.norm(acc_d, axis=1), 1e-30)
     rel = num / den
 
     if write and sim.log_dir:
-        pos = p.pos[sel].cpu().numpy()
-        ptype = p.ptype[sel].cpu().numpy()
-        pid = p.pid[sel].cpu().numpy()
+        pos = read(p.pos[sel]).numpy()
+        ptype = read(p.ptype[sel]).numpy()
+        pid = read(p.pid[sel]).numpy()
         with open(os.path.join(sim.log_dir, "forcetest.txt"), "a") as f:
             for k in range(nsel):
                 f.write(

@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from ..constants import SOFTFAC_SPLINE, TIMEBASE
+from ..trace import blocking
 from .timeline import pow2_floor_i32, timebase_interval
 
 
@@ -45,7 +46,8 @@ def cosmo_factors(cfg, units, time_now, device="cpu") -> CosmoFactors:
     """f32 0-d tensors on `device`; all ones for Newtonian runs.
     `time_now` may be an f32 tensor (a segment's device-side time)."""
     if cfg.comoving_integration:
-        a = torch.as_tensor(time_now, dtype=torch.float32, device=device)
+        a = blocking(torch.as_tensor, time_now, dtype=torch.float32,
+                     device=device)
         h2 = (cfg.omega0 / (a * a * a)
               + (1 - cfg.omega0 - cfg.omega_lambda) / (a * a)
               + cfg.omega_lambda)
@@ -85,8 +87,9 @@ def compute_timestep_dt(cfg, p, dt_displacement: float,
     eps = soft_table[p.ptype.long()]
     if cfg.adaptive_gravsoft_forgas and sph is not None:
         # gas Plummer-equivalent = Hsml/2.8 (timestep.c:497-500)
-        eps = torch.where(is_gas, sph.hsml / torch.tensor(
-            SOFTFAC_SPLINE, dtype=torch.float32, device=p.device), eps)
+        eps = torch.where(is_gas, sph.hsml / blocking(
+            torch.tensor, SOFTFAC_SPLINE, dtype=torch.float32,
+            device=p.device), eps)
     if atime is None:
         dt = torch.sqrt(2 * cfg.err_tol_int_accuracy * eps / ac)
     else:
@@ -117,8 +120,8 @@ def compute_timestep_ticks(cfg, p, dt_displacement: float,
     dt = torch.clamp(dt, min=cfg.min_size_timestep)
     # a true f32 division (a Python-scalar divisor may become a multiply by
     # its reciprocal, which can round differently at a bin edge)
-    tbi = torch.tensor(timebase_interval(cfg), dtype=torch.float32,
-                       device=dt.device)
+    tbi = blocking(torch.tensor, timebase_interval(cfg),
+                   dtype=torch.float32, device=dt.device)
     # clamped before the cast: a step longer than the whole timeline
     # saturates, as XLA's conversion does, where a bare cast would wrap
     ti_step = torch.clamp(torch.clamp(dt / tbi, max=TIMEBASE)
@@ -127,7 +130,7 @@ def compute_timestep_ticks(cfg, p, dt_displacement: float,
 
 
 def _f32(v, device) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.float32, device=device)
+    return blocking(torch.tensor, v, dtype=torch.float32, device=device)
 
 
 def glass_step(cfg, units, p):
@@ -294,7 +297,8 @@ def kick(cfg, p, tables, ti_current: int, dt_displacement: float,
 
 
 def _gravkick1(tables, t0: int, t1: int, dev):
-    it = lambda v: torch.tensor([v], dtype=torch.int32, device=dev)
+    it = lambda v: blocking(torch.tensor, [v], dtype=torch.int32,
+                            device=dev)
     return tables.gravkick_factor(it(t0), it(t1))[0]
 
 
@@ -324,7 +328,7 @@ def pm_kick_vel_pred(p, sph, tables, ti_current: int, pm_beg: int,
 
 def drift(p, tables, ti0: int, ti1: int):
     """move_particles (predict.c:31-104): drift ALL particles ti0 -> ti1."""
-    dd = tables.drift_factor(ti0, ti1).to(p.device)
+    dd = blocking(tables.drift_factor(ti0, ti1).to, p.device)
     return p.replace(pos=p.pos + p.vel * dd)
 
 
@@ -333,9 +337,9 @@ def predict_sph(cfg, p, sph, tables, ti0: int, ti1: int):
     predicted velocity, density and Hsml extrapolated by div v with the
     MinGasHsml floor, and the pressure re-predicted from the entropy."""
     dev = p.device
-    dt_grav = tables.gravkick_factor(ti0, ti1).to(dev)
-    dt_hydro = tables.hydrokick_factor(ti0, ti1).to(dev)
-    dt_drift = tables.drift_factor(ti0, ti1).to(dev)
+    dt_grav = blocking(tables.gravkick_factor(ti0, ti1).to, dev)
+    dt_hydro = blocking(tables.hydrokick_factor(ti0, ti1).to, dev)
+    dt_drift = blocking(tables.drift_factor(ti0, ti1).to, dev)
     # under PMGRID the prediction includes the long-range force
     # (predict.c:58-61)
     grav_acc = p.accel + p.accel_pm if cfg.pmgrid else p.accel
@@ -349,7 +353,7 @@ def predict_sph(cfg, p, sph, tables, ti0: int, ti1: int):
         hsml = torch.where(sph.hsml > 0, torch.clamp(hsml, min=min_hsml),
                            hsml)
     # entropy advanced from the particle's own step start to ti1
-    dt_entr = (torch.tensor(ti1, dtype=torch.float32, device=dev)
+    dt_entr = (blocking(torch.tensor, ti1, dtype=torch.float32, device=dev)
                - p.ti_begstep.to(torch.float32)) * timebase_interval(cfg)
     pressure = (sph.entropy + sph.dt_entropy * dt_entr) \
         * density ** cfg.gamma
@@ -362,5 +366,6 @@ def box_wrap(cfg, p):
     (predict.c:114-122)."""
     if not cfg.periodic or cfg.box_size <= 0:
         return p
-    box = torch.tensor(cfg.box_sizes, dtype=p.pos.dtype, device=p.device)
+    box = blocking(torch.tensor, cfg.box_sizes, dtype=p.pos.dtype,
+                   device=p.device)
     return p.replace(pos=torch.remainder(p.pos, box))

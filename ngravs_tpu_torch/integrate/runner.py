@@ -30,7 +30,13 @@ snapshot or statistics time: on the direct path (headless runs) as a loop
 of the general step, and on the tree/TreePM path as the JAX package's tree
 segment, with the reference's tree maintenance cadence.  A segment is a
 host loop over tensors on the device that reads a few scalars a step
-(`seg_counts` counts them).
+(`trace.counts["segment.*"]` counts them).
+
+`Simulation.trace` (`ngravs_tpu_torch/trace.py`) holds the run's timers
+and counters; `cpu_timers` is its `timers`.  The general step is the span
+`total`, with `drift`, `pm`, `gravity` (the solver's `tree`, `walk` and
+`scatter` nested in it), `hydro` (`sph.density`, `sph.hydro`) and
+`timeline` inside; every host read and wait goes through the trace.
 """
 
 from __future__ import annotations
@@ -55,6 +61,8 @@ from ..ops.sph import HydroSolver
 from ..ops.tree import build_tree, drift_tree, refresh_tree
 from ..ops.walk import drift_walk_tables, pack_walk_tables
 from ..particles import Particles, SphState
+from ..trace import Trace
+from ..trace import read as _read
 from ..units import set_units
 from .kdk import box_wrap, compute_timestep_dt, compute_timestep_ticks, \
     cosmo_factors, drift, glass_step, kick, pm_kick, pm_kick_vel_pred, \
@@ -82,7 +90,7 @@ def build_snapshot_data(cfg, tables, tbi: float, p: Particles,
         # file vel = internal vel / a^(3/2) (io.c:239-240)
         vel = vel * time_now ** -1.5
     pos, vel, mass, pid, ptype, pot = (
-        t.cpu().numpy() for t in (p.pos, vel, p.mass, p.pid, p.ptype,
+        _read(t).numpy() for t in (p.pos, vel, p.mass, p.pid, p.ptype,
                                   p.potential))
     h = SnapshotHeader()
     counts = np.bincount(ptype, minlength=6).astype(np.int32)
@@ -110,7 +118,7 @@ def build_snapshot_data(cfg, tables, tbi: float, p: Particles,
         fac2 = 1.0 / time_now ** (3 * cfg.gamma - 2)
     gas = sph is not None and n_gas > 0
     if gas:
-        ent, rho, hs, dent = (t.cpu().numpy()[:n_gas] for t in (
+        ent, rho, hs, dent = (_read(t).numpy()[:n_gas] for t in (
             sph.entropy, sph.density, sph.hsml, sph.dt_entropy))
         if entropy_is_u or cfg.isotherm_eqs:
             # density has not run yet, or IsothermEqs: the entropy field
@@ -129,13 +137,13 @@ def build_snapshot_data(cfg, tables, tbi: float, p: Particles,
     if cfg.output_acceleration:
         # physical acceleration fac1 (tree + PM) + fac2 hydro for gas
         # (io.c:311-330)
-        acc = fac1 * (p.accel + p.accel_pm).cpu().numpy()
+        acc = fac1 * _read(p.accel + p.accel_pm).numpy()
         if gas:
-            acc[:n_gas] += fac2 * sph.hydro_accel.cpu().numpy()[:n_gas]
+            acc[:n_gas] += fac2 * _read(sph.hydro_accel).numpy()[:n_gas]
         data.accel = acc.astype(np.float32)
     if cfg.output_timestep:
         # (Ti_endstep - Ti_begstep) * Timebase_interval (io.c:343-351)
-        data.tstp = ((p.ti_endstep - p.ti_begstep).cpu().numpy()
+        data.tstp = (_read(p.ti_endstep - p.ti_begstep).numpy()
                      * tbi).astype(np.float32)
     return data
 
@@ -284,21 +292,20 @@ class Simulation:
 
         self._next_output = self._first_output_time()
         self._next_stats = cfg.time_begin
-        self.cpu_timers = {k: 0.0 for k in
-                           ["total", "gravity", "drift", "timeline", "snapshot",
-                            "potential", "hydro", "domain"]}
-        if cfg.pmgrid:
-            self.cpu_timers["pm"] = 0.0
+        # the run's timers and counters, shared with its solvers; the
+        # timers of cpu.txt's columns (and PM's) start at zero
+        self.trace = Trace()
+        self.cpu_timers = self.trace.timers
+        for k in ("total", "gravity", "drift", "timeline", "snapshot",
+                  "potential", "hydro", "domain") \
+                + (("pm",) if cfg.pmgrid else ()):
+            self.cpu_timers[k] = 0.0
         self.solver = GravitySolver(cfg, self.wiring, self.force_soft,
                                     self.units.G, hubble=self.units.hubble,
-                                    device=self.device)
-        self.hydro = HydroSolver(cfg, self.units) \
+                                    device=self.device, trace=self.trace)
+        self.hydro = HydroSolver(cfg, self.units, trace=self.trace) \
             if self.sph is not None else None
-        # the segments' counts: segments run, steps, host reads of their
-        # loop, cap retries, and the tree segments' steps by maintenance
-        # mode (drift, refresh, rebuild)
-        self.seg_counts = dict(segments=0, steps=0, host_reads=0,
-                               retries=0, **{m: 0 for m in TREE_MODES})
+        self._forces_log = None
         if cfg.pseudosymmetric:
             # a fresh 3000-entry table of draws a step, seed 42
             # (set_random_numbers, system.c:37; begrun.c:54-55)
@@ -399,11 +406,12 @@ class Simulation:
         time."""
         cfg, units = self.cfg, self.units
         p = self.p if p is None else p
-        f32 = lambda v: torch.tensor(v, dtype=torch.float32,
-                                     device=self.device)
+        f32 = lambda v: self.trace.blocking(torch.tensor, v,
+                                            dtype=torch.float32,
+                                            device=self.device)
         dt_min = f32(cfg.max_size_timestep)
         if not cfg.comoving_integration:
-            return float(dt_min)
+            return float(self.trace.read(dt_min))
         a = f32(self.time) if atime is None else atime
         h2 = (cfg.omega0 / (a * a * a)
               + (1 - cfg.omega0 - cfg.omega_lambda) / (a * a)
@@ -426,7 +434,7 @@ class Simulation:
                     / torch.clamp(vrms, min=1e-30))
             dt_min = torch.where(count > 0, torch.minimum(dt_min, dt_t),
                                  dt_min)
-        return float(dt_min)
+        return float(self.trace.read(dt_min))
 
     # ------------------------------------------------------------------
     def _first_output_time(self):
@@ -462,28 +470,73 @@ class Simulation:
 
     def _active_info(self):
         """(number of active particles, min ti_endstep) in one fetch."""
-        n_act, min_glob = torch.stack([
+        n_act, min_glob = self.trace.read(torch.stack([
             torch.sum(self.p.ti_endstep == self.ti_current),
-            torch.amin(self.p.ti_endstep).long()]).cpu()
+            torch.amin(self.p.ti_endstep).long()]))
         return int(n_act), int(min_glob)
 
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self.trace.sync(self.device)
 
     def compute_forces(self, full: bool = False):
         """compute_accelerations (accel.c:24) for the active set: gravity,
         then the SPH density and hydro passes for active gas.  `full`
         refreshes the long-range PM force too (long_range_force,
-        accel.c:34-42), as standalone full-force callers need."""
-        t0 = _time.time()
+        accel.c:34-42), as standalone full-force callers need; such a
+        pass writes its own timings.txt line."""
+        tr = self.trace
+        mark = self._trace_mark()
+        g0 = tr.timers.get("gravity", 0.0)
+        with tr.span("gravity"):
+            forces = self._gravity(full)
+        if forces is None:
+            return
+        n_active, act, tree, n_ia = forces
+        dt = tr.timers["gravity"] - g0
+        self._forces_log = (self.step_count, n_active, dt, n_ia) \
+            if dt > 0 else None
+
+        # --- SPH: density + smoothing lengths, then hydro (accel.c:60-89) ---
+        if self.n_gas > 0:
+            with tr.span("hydro"):
+                n_gas_act = int(tr.read(torch.sum(act
+                                                  & (self.p.ptype == 0))))
+                if n_gas_act > 0:
+                    self._sph_forces(tree, n_gas_act)
+                self._sync()
+        if full:
+            self._log_forces(mark)
+
+    def _trace_mark(self):
+        """(host reads, wait seconds) so far, to take differences from."""
+        return (self.trace.counts.get("host_reads", 0),
+                self.trace.timers.get("wait", 0.0))
+
+    def _log_forces(self, mark):
+        """The timings.txt line of the last force pass (gravtree.c:408-445),
+        with the host reads and the seconds waited on the card since
+        `mark`."""
+        if self._forces_log is None or "timings" not in self._logs:
+            return
+        step, n_active, dt, n_ia = self._forces_log
+        reads, wait = self._trace_mark()
+        self._logs["timings"].write(
+            f"Step {step}: forces for {n_active} particles "
+            f"in {dt:.4f}s  part/sec={n_active / dt:.5g}  "
+            f"ia/part={n_ia / max(n_active, 1):.1f}  "
+            f"host_reads={reads - mark[0]}  wait={wait - mark[1]:.4f}s\n")
+
+    def _gravity(self, full: bool):
+        """The gravity half of `compute_forces`, inside its `gravity` span.
+        Returns (active count, active mask, tree or None, interactions), or
+        None when nothing is active."""
         if full and self.cfg.pmgrid and not self.cfg.no_gravity:
             self.p = self.p.replace(accel_pm=self.solver.pm_forces(self.p))
         n_active, _ = self._active_info()
         if full:
             n_active = self.p.n
         if n_active == 0:
-            return
+            return None
         hsml = self.sph.hsml if self.sph is not None else None
         tree = None
         n_ia = 0
@@ -520,22 +573,7 @@ class Simulation:
             self.p = p_solve
             self._sync()
         self.num_force_updates += n_active
-        dt = _time.time() - t0
-        self.cpu_timers["gravity"] += dt
-
-        # --- SPH: density + smoothing lengths, then hydro (accel.c:60-89) ---
-        if self.n_gas > 0:
-            t1 = _time.time()
-            n_gas_act = int(torch.sum(act & (self.p.ptype == 0)))
-            if n_gas_act > 0:
-                self._sph_forces(tree, n_gas_act)
-            self._sync()
-            self.cpu_timers["hydro"] += _time.time() - t1
-        if "timings" in self._logs and dt > 0:
-            self._logs["timings"].write(
-                f"Step {self.step_count}: forces for {n_active} particles "
-                f"in {dt:.4f}s  part/sec={n_active / dt:.5g}  "
-                f"ia/part={n_ia / max(n_active, 1):.1f}\n")
+        return n_active, act, tree, n_ia
 
     def _sph_forces(self, tree, n_gas_act: int):
         """density() then hydro_force() for the active gas on `tree` (the
@@ -569,7 +607,10 @@ class Simulation:
 
     def write_snapshot_now(self, path=None):
         """savepositions (io.c:33): snapshot with velocities predicted to now."""
-        t0 = _time.time()
+        with self.trace.span("snapshot"):
+            return self._write_snapshot(path)
+
+    def _write_snapshot(self, path):
         cfg = self.cfg
         if cfg.output_potential:
             self.update_full_potential()
@@ -590,7 +631,6 @@ class Simulation:
                 out_dir, f"{cfg.snapshot_file_base}_{self.snapshot_count:03d}")
         write_snapshot_files(cfg, path, data)
         self.snapshot_count += 1
-        self.cpu_timers["snapshot"] += _time.time() - t0
         return path
 
     def update_full_potential(self):
@@ -613,9 +653,8 @@ class Simulation:
 
     def energy_statistics(self):
         if self.cfg.compute_potential_energy:
-            t0 = _time.time()
-            self.update_full_potential()
-            self.cpu_timers["potential"] += _time.time() - t0
+            with self.trace.span("potential"):
+                self.update_full_potential()
         com = self.cfg.comoving_integration
         s = compute_global_quantities(
             self.p, self.tables, self.ti_current,
@@ -639,7 +678,8 @@ class Simulation:
         ticks = compute_timestep_ticks(cfg, self.p, self.dt_displacement,
                                        self._soft_t, cf, self.sph)
         act = self.p.ti_endstep == self.ti_current
-        mn = int(torch.amin(torch.where(act, ticks, C.TIMEBASE)))
+        mn = int(self.trace.read(torch.amin(torch.where(act, ticks,
+                                                         C.TIMEBASE))))
         self.present_min_step = min(self.present_min_step, mn)
         mx = max(1, min(int(min(self.dt_displacement, cfg.max_size_timestep)
                             / self.tbi), C.TIMEBASE))
@@ -652,8 +692,8 @@ class Simulation:
     def _next_sync_info(self):
         """(next sync point, particles active there) in one fetch."""
         mn = torch.amin(self.p.ti_endstep)
-        pair = torch.stack([mn, torch.sum(self.p.ti_endstep == mn)
-                            .to(mn.dtype)]).cpu()
+        pair = self.trace.read(torch.stack([
+            mn, torch.sum(self.p.ti_endstep == mn).to(mn.dtype)]))
         return int(pair[0]), int(pair[1])
 
     def _segment_bounds(self) -> int:
@@ -702,12 +742,12 @@ class Simulation:
             if steps >= self._segment_cap or self.ti_current >= C.TIMEBASE:
                 break
             _, min_glob = self._active_info()
-            self.seg_counts["host_reads"] += 1
+            self.trace.count("segment.host_reads")
             if min_glob > self._segment_bounds() \
                     or min_glob <= self.ti_current:
                 break
-        self.seg_counts["segments"] += 1
-        self.seg_counts["steps"] += steps
+        self.trace.count("segment.segments")
+        self.trace.count("segment.steps", steps)
 
     def _try_tree_segment(self) -> bool:
         """A segment on the tree/TreePM solver (_try_tree_segment,
@@ -724,13 +764,13 @@ class Simulation:
         solver = self.solver
         solver.clamp_caps(self.p.n)
         for _ in range(6):
-            t_seg0 = _time.time()
+            t_seg0 = _time.perf_counter()
             steps, ovf, demand, rec, (min_glob, n_act) = self._tree_segment(
                 min_glob, n_act, ti_stop)
-            self._log_segment(rec, _time.time() - t_seg0)
+            self._log_segment(rec, _time.perf_counter() - t_seg0)
             if not ovf:
                 return steps > 0
-            self.seg_counts["retries"] += 1
+            self.trace.count("segment.retries")
             caps_before = (dict(solver.fcaps), solver.octet_caps)
             solver.grow_caps(*demand)
             if (dict(solver.fcaps), solver.octet_caps) == caps_before:
@@ -748,7 +788,8 @@ class Simulation:
         if mode == 0:
             return drift_tree(tree, dd), drift_walk_tables(wt, dd,
                                                            cfg.n_gravs)
-        fsoft = solver.fsoft_by_type.to(self.device)[p.ptype.long()]
+        fsoft = self.trace.blocking(solver.fsoft_by_type.to,
+                                    self.device)[p.ptype.long()]
         aold = cfg.err_tol_force_acc * p.old_acc / solver.G
         zero_h = torch.zeros_like(p.mass)
         kw = dict(depth=solver.depth, n_gravs=cfg.n_gravs,
@@ -771,8 +812,9 @@ class Simulation:
     def _time_f32(self, ti: int) -> torch.Tensor:
         """The time at tick ti in f32 arithmetic, as the JAX segment
         computes it on the device (time_at_dev)."""
-        f32 = lambda v: torch.tensor(v, dtype=torch.float32,
-                                     device=self.device)
+        f32 = lambda v: self.trace.blocking(torch.tensor, v,
+                                            dtype=torch.float32,
+                                            device=self.device)
         tf = f32(ti) * f32(float(self.tbi))
         if self.cfg.comoving_integration:
             return f32(self.cfg.time_begin) * torch.exp(tf)
@@ -786,8 +828,9 @@ class Simulation:
         refresh on full steps; the kick; the PM kick and window.  The loop
         reads one stacked row of scalars a step (next sync point, its
         active count, the overflow flag, the interaction count).  Returns
-        (steps, overflowed, cap demand, per-step records, (next sync
-        point, active count there))."""
+        (steps, overflowed, cap demand, per-step records (tick, active
+        count, interactions, host reads, wait seconds), (next sync point,
+        active count there))."""
         cfg, solver, tables = self.cfg, self.solver, self.tables
         n = self.p.n
         walk = solver._walk(want_pot=False)
@@ -806,6 +849,7 @@ class Simulation:
         chunk_dem = 0
         lvl_dem = None
         rec = []
+        mark = self._trace_mark()
         while (steps < self._segment_cap and min_nxt <= ti_stop
                and (steps == 0 or min_nxt > ti_cur)
                and (not cfg.pmgrid or min_nxt <= pm_e)):
@@ -823,7 +867,8 @@ class Simulation:
             since1 = (0 if mode == 2 else since) + n_active
             since_agg1 = 0 if mode > 0 else since_agg + 1
             mask = q.ti_endstep == ti1
-            tgt = torch.nonzero(mask[tree1.order.long()]).squeeze(1)
+            tgt = self.trace.blocking(
+                torch.nonzero, mask[tree1.order.long()]).squeeze(1)
             res = walk(tree1, tgt, opening_override=opening, tables=wt1)
             orig = tree1.order[tgt].long()
             q = solver._scatter(q, orig, res.acc, res.pot, want_pot=False,
@@ -841,11 +886,11 @@ class Simulation:
                     ti1, pm_b, pm_e, dt1, float(self.tbi))
                 q = pm_kick(q, tables, tstart, tend)
             mn = torch.amin(q.ti_endstep).long()
-            head = torch.cat([torch.stack([
+            head = self.trace.read(torch.cat([torch.stack([
                 mn, torch.sum(q.ti_endstep == mn), res.overflow.long(),
                 torch.sum(res.ninteract.long()), res.max_chunk.long()]),
-                res.max_frontier.long()]).cpu()
-            self.seg_counts["host_reads"] += 1
+                res.max_frontier.long()]))
+            self.trace.count("segment.host_reads")
             min2, n2, ovf1, nia, mc = (int(x) for x in head[:5])
             chunk_dem = max(chunk_dem, mc)
             lvl_dem = head[5:] if lvl_dem is None \
@@ -857,8 +902,11 @@ class Simulation:
             p, tree, wt = q, tree1, wt1
             since, since_agg, dt_disp = since1, since_agg1, dt1
             pm_b, pm_e = pm_b1, pm_e1
-            rec.append((ti1, n_active, nia))
-            self.seg_counts[TREE_MODES[mode]] += 1
+            now = self._trace_mark()
+            rec.append((ti1, n_active, nia, now[0] - mark[0],
+                        now[1] - mark[1]))
+            mark = now
+            self.trace.count("segment." + TREE_MODES[mode])
             ti_cur, min_nxt, n_nxt = ti1, min2, n2
             updates += n_active
             last_act = n_active
@@ -872,8 +920,8 @@ class Simulation:
         self.step_count += steps
         if steps:
             self.flag_fullstep = last_act == n
-        self.seg_counts["segments"] += 1
-        self.seg_counts["steps"] += steps
+        self.trace.count("segment.segments")
+        self.trace.count("segment.steps", steps)
         # the segment's trees are not the solver's cache
         solver._tree_cache = None
         demand = (chunk_dem, lvl_dem.numpy() if lvl_dem is not None
@@ -883,12 +931,13 @@ class Simulation:
     def _log_segment(self, rec, seconds: float):
         """A segment's info and timings lines from its per-step records
         (every_timestep_stuff, run.c:370-392; gravtree.c:408-445), the
-        wall time shared evenly."""
+        wall time shared evenly; each step's host reads and wait are its
+        own."""
         if not rec or not self._logs:
             return
         step0 = self.step_count - len(rec)
         per = seconds / len(rec)
-        for k, (ti_k, act_k, nia_k) in enumerate(rec):
+        for k, (ti_k, act_k, nia_k, reads_k, wait_k) in enumerate(rec):
             if "info" in self._logs:
                 self._logs["info"].write(
                     f"Begin Step {step0 + k}, Time: "
@@ -898,7 +947,8 @@ class Simulation:
                 self._logs["timings"].write(
                     f"Step {step0 + k + 1}: forces for {act_k} particles "
                     f"in {per:.4f}s  part/sec={act_k / max(per, 1e-9):.5g}"
-                    f"  ia/part={nia_k / max(act_k, 1):.1f}\n")
+                    f"  ia/part={nia_k / max(act_k, 1):.1f}  "
+                    f"host_reads={reads_k}  wait={wait_k:.4f}s\n")
         for key in ("info", "timings"):
             if key in self._logs:
                 self._logs[key].flush()
@@ -917,9 +967,26 @@ class Simulation:
         self._general_step()
 
     def _general_step(self):
-        """One main-loop iteration (run.c:32-132)."""
+        """One main-loop iteration (run.c:32-132), the span `total`; then
+        its timings.txt and cpu.txt lines."""
+        mark = self._trace_mark()
+        self._forces_log = None
+        with self.trace.span("total"):
+            kicked = self._sync_point()
+        self._log_forces(mark)
+        if kicked and "cpu" in self._logs:
+            c = self.cpu_timers
+            self._logs["cpu"].write(
+                f"Step {self.step_count}, Time: {self.time:.8g}\n"
+                f"{c['total']:.2f} {c['gravity']:.2f} {c['hydro']:.2f} "
+                f"{c['domain']:.2f} {c['potential']:.2f} {c['drift']:.2f} "
+                f"{c['timeline']:.2f} {c['snapshot']:.2f}\n")
+
+    def _sync_point(self) -> bool:
+        """The body of `_general_step`; False on a MAKEGLASS step (no
+        kick)."""
         cfg = self.cfg
-        t_step0 = _time.time()
+        tr = self.trace
 
         # --- find next sync point (run.c:151-236) ---
         _, min_glob = self._active_info()
@@ -937,14 +1004,13 @@ class Simulation:
             self.write_snapshot_now()
             self._advance_output_time()
 
-        # drift everyone to the sync point
-        t0 = _time.time()
-        if min_glob > self.ti_current:
-            self._drift_to(min_glob)
-        self.ti_current = min_glob
-        self.cpu_timers["drift"] += _time.time() - t0
-
-        n_act, _ = self._active_info()
+        # drift everyone to the sync point; the span ends on the next
+        # read, so the drift's device work completes inside it
+        with tr.span("drift"):
+            if min_glob > self.ti_current:
+                self._drift_to(min_glob)
+            self.ti_current = min_glob
+            n_act, _ = self._active_info()
         self.flag_fullstep = n_act == self.p.n
         if "info" in self._logs:
             self._logs["info"].write(
@@ -954,10 +1020,10 @@ class Simulation:
         # --- forces: long-range PM first when due (accel.c:34-42) ---
         pm_step = bool(cfg.pmgrid) and self.ti_current == self.pm_ti_endstep
         if pm_step:
-            t0 = _time.time()
-            self.p = self.p.replace(accel_pm=self.solver.pm_forces(self.p))
-            self._sync()
-            self.cpu_timers["pm"] += _time.time() - t0
+            with tr.span("pm"):
+                self.p = self.p.replace(
+                    accel_pm=self.solver.pm_forces(self.p))
+                self._sync()
         self.compute_forces()
 
         # --- FORCETEST: direct-sum accuracy rows (gravtree_forcetest.c:28;
@@ -984,10 +1050,17 @@ class Simulation:
                 ti_endstep=torch.where(act, self.p.ti_endstep + inc,
                                        self.p.ti_endstep))
             self.step_count += 1
-            return
+            return False
 
         # --- kick + new timesteps ---
-        t0 = _time.time()
+        with tr.span("timeline"):
+            self._kick(pm_step)
+        self.step_count += 1
+        return True
+
+    def _kick(self, pm_step: bool):
+        """The kick and the new timesteps, ending synchronised."""
+        cfg = self.cfg
         # displacement constraint refresh on full steps (timestep.c:63-68);
         # NOPMSTEPADJUSTMENT pins it to MaxSizeTimestep
         if cfg.no_pmstep_adjustment:
@@ -1001,7 +1074,8 @@ class Simulation:
             dtp = compute_timestep_dt(cfg, self.p, self.dt_displacement,
                                       self._soft_t, cf, self.sph)
             act = self.p.ti_endstep == self.ti_current
-            mn = float(torch.amin(torch.where(act, dtp, math.inf)))
+            mn = float(self.trace.read(torch.amin(torch.where(act, dtp,
+                                                              math.inf))))
             if mn < cfg.min_size_timestep:
                 raise RuntimeError(
                     f"timestep wants to be {mn:g}, below MinSizeTimestep="
@@ -1031,17 +1105,6 @@ class Simulation:
                     self.p, self.sph, self.tables, self.ti_current,
                     self.pm_ti_begstep, self.pm_ti_endstep)
         self._sync()
-        self.cpu_timers["timeline"] += _time.time() - t0
-
-        self.step_count += 1
-        self.cpu_timers["total"] += _time.time() - t_step0
-        if "cpu" in self._logs:
-            c = self.cpu_timers
-            self._logs["cpu"].write(
-                f"Step {self.step_count}, Time: {self.time:.8g}\n"
-                f"{c['total']:.2f} {c['gravity']:.2f} {c['hydro']:.2f} "
-                f"{c['domain']:.2f} {c['potential']:.2f} {c['drift']:.2f} "
-                f"{c['timeline']:.2f} {c['snapshot']:.2f}\n")
 
     # ------------------------------------------------------------------
     def save_restart(self, path: str | None = None) -> str:

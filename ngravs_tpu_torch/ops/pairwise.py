@@ -40,6 +40,7 @@ from typing import NamedTuple
 import torch
 
 from ..models import laws as L
+from ..trace import current as current_trace
 
 # packed source-table rows (6/7 hold int32 bit patterns)
 FX, FY, FZ, FMASS, FSOFT, FCOUNT, IGRAV, IGID = 0, 1, 2, 3, 4, 5, 6, 7
@@ -375,9 +376,10 @@ def pairwise_eval(targets: dict, spacked: torch.Tensor, n_src: torch.Tensor,
                   treepm_asmth: float = 0.0):
     """K1 wrapper: CUDA tensors launch `csrc/pairwise.cu` with
     `launch_plan`'s shape, CPU tensors take `pairwise_eval_torch`.  Raises
-    on a launch the kernel or the card refuses.  Counts kernel launches in
-    `pairwise_eval.launches`, and per instance (`instance_name`) in
-    `pairwise_eval.counts`."""
+    on a launch the kernel or the card refuses.  Counts each kernel launch
+    by instance (`instance_name`) in `counts["k1.<instance>"]` of the
+    trace of the innermost open span (`trace.current()`; a launch outside
+    every span is counted nowhere): `instance_counts`."""
     _check(targets, spacked, n_src)
     kw = dict(wiring=wiring, box_size=box_size, accumulator=accumulator,
               treepm_asmth=treepm_asmth)
@@ -428,17 +430,13 @@ def pairwise_eval(targets: dict, spacked: torch.Tensor, n_src: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"pair kernel launch failed: cudaError {err} "
                            f"(plan {plan})")
-    pairwise_eval.launches += 1
-    name = instance_name(flags)
-    pairwise_eval.counts[name] = pairwise_eval.counts.get(name, 0) + 1
+    tr = current_trace()
+    if tr is not None:
+        tr.count("k1." + instance_name(flags))
     return acc, pot, nia
 
 
-pairwise_eval.launches = 0
-pairwise_eval.counts = {}
-
-
-def reset_counts():
-    """Zero the launch counters (total and per instance)."""
-    pairwise_eval.launches = 0
-    pairwise_eval.counts = {}
+def instance_counts(trace) -> dict:
+    """K1's launches in `trace` by instance name ({"K1bcd": n, ...}); their
+    sum is every launch."""
+    return trace.prefixed("k1.")

@@ -13,6 +13,11 @@ Cap management: the walk's per-block caps are fixed sizes; the solver grows
 a cap the walk reports overflowing, to measured demand, and retries — the
 analog of Gadget growing TreeAllocFactor (forcetree.c:3176).  The host
 reads the overflow flag and demand statistics once per pass.
+
+The solve's layers are spans of the solver's trace (`trace.py`): `tree`
+(build or refresh, the fat-leaf loop, the octet measure), `walk` (the
+attempts, with the walk's own `walk.traverse` and `walk.k1`) and `scatter`;
+`tree.builds`, `tree.refreshes` and `walk.attempts` count.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 from ..config import SimulationConfig
 from ..models.wiring import GravityWiring
 from .direct import direct_forces
+from ..trace import Trace
 from .morton import MAX_DEPTH
 from .pairwise import pairwise_eval
 from .tree import build_tree, refresh_tree
@@ -101,12 +107,14 @@ def _bucket(n: int, minimum: int = 256) -> int:
 
 
 class GravitySolver:
-    """Gravity for one simulation configuration, on the particles' device."""
+    """Gravity for one simulation configuration, on the particles' device.
+    `trace`: the run's timers and counters (a fresh one if not given)."""
 
     def __init__(self, cfg: SimulationConfig, wiring: GravityWiring,
                  fsoft_by_type, g_const: float, hubble: float = 0.0,
-                 device="cpu"):
+                 device="cpu", trace: Trace | None = None):
         self.cfg = cfg
+        self.trace = trace if trace is not None else Trace()
         self.wiring = wiring
         self.G = float(g_const)
         self.fsoft_by_type = torch.as_tensor(np.asarray(fsoft_by_type,
@@ -226,19 +234,21 @@ class GravitySolver:
             box_size=self.box, leaf_factor=self.leaf_factor,
             want_pot=want_pot, lattice_tables=self.lattice_tables,
             treepm=self.treepm, octet_caps=self.octet_caps,
-            pair_eval=self.pair_eval)
+            pair_eval=self.pair_eval, trace=self.trace)
 
     def _measure_octets(self, tree, n: int) -> None:
         """Octet caps from the built tree's per-level occupancy, with a 1.5x
         margin (rounded up to 8) so drifted refreshes do not overflow."""
         bucket = self.cfg.tree_bucket_size
-        demand = measure_octet_demand(tree, n, self.depth, bucket)
+        demand = measure_octet_demand(tree, n, self.depth, bucket,
+                                      self.trace)
         bound = octet_counts(n, self.depth, bucket)
         self.octet_caps = tuple(min(b, ((d * 3 // 2 + 7) // 8) * 8)
                                 for d, b in zip(demand, bound))
 
     def _fsoft(self, p, hsml):
-        fsoft = self.fsoft_by_type.to(p.device)[p.ptype.long()]
+        fsoft = self.trace.blocking(self.fsoft_by_type.to,
+                                    p.device)[p.ptype.long()]
         if self.cfg.adaptive_gravsoft_forgas:
             # gas: spline softening = Hsml (gravtree.c:135-138)
             fsoft = torch.where(p.ptype == 0, hsml, fsoft)
@@ -298,8 +308,10 @@ class GravitySolver:
         if hsml is None:
             hsml = torch.zeros_like(p.mass)
         fsoft = self._fsoft(p, hsml)
+        tr = self.trace
         if self.uses_direct(p.n):
-            tgt = torch.nonzero(p.ti_endstep == ti_current).squeeze(1)
+            tgt = tr.blocking(torch.nonzero,
+                              p.ti_endstep == ti_current).squeeze(1)
             acc, pot = direct_forces(
                 self.wiring, p.pos, p.mass, p.grav, fsoft,
                 tgt_idx=tgt.to(torch.int32), box=self.box,
@@ -314,22 +326,50 @@ class GravitySolver:
             # the relative criterion needs a prior acceleration; with
             # OldAcc == 0 it would open every node.  The reference
             # bootstraps with the geometric criterion (accel.c:48-52)
-            if float(torch.amax(p.old_acc)) == 0.0:
+            if float(tr.read(torch.amax(p.old_acc))) == 0.0:
                 opening = "bh"
             else:
                 self._rel_ready = True
-        self.clamp_caps(p.n)
-        bucket = self.cfg.tree_bucket_size
-        aold = self.cfg.err_tol_force_acc * p.old_acc / self.G  # G=1 units
         can_refresh = (self._tree_cache is not None
                        and self._forces_since_build
                        < self.cfg.tree_domain_update_frequency * p.n)
+        with tr.span("tree"):
+            tree = self._tree(p, fsoft, hsml, can_refresh)
+            # the active targets in the tree's order: this waits for the
+            # card, so a refresh's device work ends inside its span
+            tgt_sorted = tr.blocking(
+                torch.nonzero,
+                (p.ti_endstep == ti_current)[tree.order.long()]).squeeze(1)
+        with tr.span("walk"):
+            res = self._walk_attempts(tree, tgt_sorted, opening, want_pot)
+        with tr.span("scatter"):
+            orig = tree.order[tgt_sorted].long()
+            p = self._scatter(p, orig, res.acc, res.pot, want_pot,
+                              res.ninteract)
+            n_ia = int(tr.read(torch.sum(res.ninteract)))
+        if can_refresh:
+            self._forces_since_build += min(n_active, p.n)
+        else:
+            self._forces_since_build = min(n_active, p.n)
+        self._tree_cache = tree
+        return p, n_ia, tree
+
+    def _tree(self, p, fsoft, hsml, can_refresh: bool):
+        """The solve's tree: the cached one refreshed, or a new build,
+        deepened while its bucket leaves are fat; octet caps measured on
+        the first."""
+        tr = self.trace
+        self.clamp_caps(p.n)
+        bucket = self.cfg.tree_bucket_size
+        aold = self.cfg.err_tol_force_acc * p.old_acc / self.G  # G=1 units
         while True:
             if can_refresh:
+                tr.count("tree.refreshes")
                 tree = refresh_tree(self._tree_cache, p.pos, p.mass, p.grav,
                                     fsoft, aold, hsml, depth=self.depth,
                                     n_gravs=self.cfg.n_gravs, bucket=bucket)
                 break
+            tr.count("tree.builds")
             tree = build_tree(p.pos, p.mass, p.grav, fsoft, aold, hsml,
                               depth=self.depth, n_gravs=self.cfg.n_gravs,
                               bucket=bucket, box_size=self.box,
@@ -339,7 +379,7 @@ class GravitySolver:
             fat = torch.amax(torch.where(tree.node_terminal,
                                          tree.node_pcount, 0))
             fat_v, need = (int(x) for x in
-                           torch.stack([fat, tree.n_chunk_rows]).cpu())
+                           tr.read(torch.stack([fat, tree.n_chunk_rows])))
             cap2 = ((int(p.n * self.leaf_factor) + 8 + 7) // 8) * 8
             if need > cap2:
                 self.leaf_factor = need * 1.25 / p.n
@@ -363,34 +403,31 @@ class GravitySolver:
             self.clamp_caps(p.n)
         if self.octet_caps is None:
             self._measure_octets(tree, p.n)
-        tgt_sorted = torch.nonzero(
-            (p.ti_endstep == ti_current)[tree.order.long()]).squeeze(1)
+        return tree
+
+    def _walk_attempts(self, tree, tgt_sorted, opening: str, want_pot: bool):
+        """The walk, retried with caps grown to the measured demand while
+        it overflows (at most 8 attempts); the caps shrink toward demand
+        once per run."""
+        tr = self.trace
         for _ in range(8):
+            tr.count("walk.attempts")
             res = self._walk(want_pot)(tree, tgt_sorted,
                                        opening_override=opening)
-            head = torch.stack([res.overflow.long(), res.layout_ovf.long(),
-                                res.max_chunk.long()]).cpu()
+            head = tr.read(torch.stack([res.overflow.long(),
+                                        res.layout_ovf.long(),
+                                        res.max_chunk.long()]))
             ovf, lovf, mc = (int(x) for x in head)
-            mf = res.max_frontier.cpu().numpy()
+            mf = tr.read(res.max_frontier).numpy()
             if not ovf:
                 # shrink caps toward measured demand once per run
                 if not self._tightened:
                     self._tightened = True
                     self.tighten_caps(mc, mf)
-                break
+                return res
             # only an octet-LAYOUT overflow needs an octet re-measure
             if lovf:
-                self._measure_octets(tree, p.n)
+                self._measure_octets(tree, tree.pos_s.shape[0])
             self.grow_caps(mc, mf)
-        else:
-            raise RuntimeError(
-                f"tree walk caps still overflowing at {self.fcaps}")
-        orig = tree.order[tgt_sorted].long()
-        p = self._scatter(p, orig, res.acc, res.pot, want_pot, res.ninteract)
-        n_ia = int(torch.sum(res.ninteract))
-        if can_refresh:
-            self._forces_since_build += min(n_active, p.n)
-        else:
-            self._forces_since_build = min(n_active, p.n)
-        self._tree_cache = tree
-        return p, n_ia, tree
+        raise RuntimeError(
+            f"tree walk caps still overflowing at {self.fcaps}")

@@ -39,6 +39,7 @@ import torch
 
 from ..constants import (KERNEL_COEFF_1, KERNEL_COEFF_2, KERNEL_COEFF_3,
                          KERNEL_COEFF_4, KERNEL_COEFF_5, KERNEL_COEFF_6)
+from ..trace import Trace, blocking
 from .tree import Octree, _append_rows, _compact_rows
 
 NORM_COEFF = 4.0 / 3 * math.pi   # allvars.h NORM_COEFF (volume of unit ball)
@@ -119,7 +120,8 @@ def _min_image(dxs, box):
     out = []
     for i, d in enumerate(dxs):
         if b[i] > 0:
-            bt = torch.tensor(b[i], dtype=d.dtype, device=d.device)
+            bt = blocking(torch.tensor, b[i], dtype=d.dtype,
+                          device=d.device)
             d = d - b[i] * torch.round(d / bt)
         out.append(d)
     return out
@@ -156,7 +158,8 @@ def make_sph_gather(depth: int, bucket: int, cand_cap: int = 4096,
     def bbox_gap(point, lo_b, hi_b):
         g = torch.maximum(lo_b - point, point - hi_b)
         if box is not None:
-            bv = torch.tensor(box, dtype=point.dtype, device=point.device)
+            bv = blocking(torch.tensor, box, dtype=point.dtype,
+                          device=point.device)
             gp = torch.maximum(lo_b - point - bv, point + bv - hi_b)
             gm = torch.maximum(lo_b - point + bv, point - bv - hi_b)
             g = torch.minimum(g, torch.minimum(gp, gm))
@@ -168,7 +171,7 @@ def make_sph_gather(depth: int, bucket: int, cand_cap: int = 4096,
         safe = torch.clamp(tgt_sorted, min=0).long()
         tvalid = tgt_sorted >= 0
         tpos = tree.pos_s[safe]
-        big = torch.tensor(1e30, dtype=tpos.dtype, device=dev)
+        big = blocking(torch.tensor, 1e30, dtype=tpos.dtype, device=dev)
         lo = torch.amin(torch.where(tvalid[..., None], tpos, big), dim=1)
         hi = torch.amax(torch.where(tvalid[..., None], tpos, -big), dim=1)
         rad = torch.amax(torch.where(tvalid, radius, 0.0), dim=1)   # [nb]
@@ -457,7 +460,10 @@ def _scatter(dst, orig, valid, val):
     """dst with val written at the original indices of the valid targets
     (the JAX `.at[orig].set(mode="drop")` with padding at index N)."""
     out = dst.clone()
-    out[orig[valid]] = val[valid]
+
+    def put():
+        out[orig[valid]] = val[valid]
+    blocking(put)
     return out
 
 
@@ -467,11 +473,14 @@ SPLIT_LEVEL = 3   # SPH target blocks stay within cells of this level
 class HydroSolver:
     """Host-side driver for the SPH passes over the shared octree.
 
-    `counts` holds this solver's pass counts (density iterations, hydro
-    passes, candidate-cap growths) since the caller last zeroed them."""
+    `trace` (the run's timers and counters, a fresh one if not given)
+    counts the passes: `sph.density_iters`, `sph.hydro_passes` and
+    `sph.cap_growths`; the density iterations are the span `sph.density`,
+    the hydro gather and pass `sph.hydro`."""
 
-    def __init__(self, cfg, units):
+    def __init__(self, cfg, units, trace: Trace | None = None):
         self.cfg = cfg
+        self.trace = trace if trace is not None else Trace()
         self.units = units
         self.min_gas_hsml = cfg.min_gas_hsml_fractional * \
             cfg.softening[0] * 2.8  # MinGasHsml (gravtree.c:517)
@@ -485,7 +494,6 @@ class HydroSolver:
         # would grow the candidate cap of every block
         # (tools/port_studies/sph_clumps.py)
         self.split_level = SPLIT_LEVEL
-        self.counts = dict(density_iters=0, hydro_passes=0, cap_growths=0)
         # TWODIMS: 2D-normalized kernel, column density / boxSize_Z
         # (allvars.h:117-125, density.c:492-496)
         self.kernel = Kernel.twodims(cfg.box_sizes[2]) if cfg.twodims \
@@ -501,12 +509,13 @@ class HydroSolver:
         """The candidate cap, or, when the candidates fit and the walk's
         frontier overflowed (a block spread over a jump of the Morton
         curve), the frontier cap."""
-        if int(cands.max_cand) <= self.cand_cap:
+        read = self.trace.read
+        if int(read(cands.max_cand)) <= self.cand_cap:
             self.frontier_cap *= 2
         else:
             self.cand_cap = max(self.cand_cap * 2,
-                                _bucket(int(cands.max_cand) * 5 // 4))
-        self.counts["cap_growths"] += 1
+                                _bucket(int(read(cands.max_cand)) * 5 // 4))
+        self.trace.count("sph.cap_growths")
 
     def _blocks(self, tree: Octree, p, ti_current, n_gas_active_max,
                 mask=None):
@@ -518,9 +527,11 @@ class HydroSolver:
             mask_s = mask_s & mask
         if self.split_level is not None:
             return self._split_blocks(
-                tree, torch.nonzero(mask_s).squeeze(1).to(torch.int32))
+                tree, self.trace.blocking(torch.nonzero, mask_s)
+                .squeeze(1).to(torch.int32))
         size = _bucket(n_gas_active_max, self.group)
-        tgt = torch.nonzero(mask_s).squeeze(1).to(torch.int32)[:size]
+        tgt = self.trace.blocking(torch.nonzero, mask_s) \
+            .squeeze(1).to(torch.int32)[:size]
         size += (-size) % self.group
         tgt = torch.cat([tgt, tgt.new_full((size - tgt.shape[0],), -1)])
         return tgt.reshape(-1, self.group)
@@ -551,12 +562,13 @@ class HydroSolver:
         new = torch.ones(n, dtype=torch.bool, device=dev)
         new[1:] = torch.any(c[1:] != c[:-1], dim=1)
         run = torch.cumsum(new, 0) - 1
-        starts = torch.nonzero(new).squeeze(1)
-        lens = torch.diff(starts, append=starts.new_tensor([n]))
+        starts = self.trace.blocking(torch.nonzero, new).squeeze(1)
+        lens = torch.diff(starts, append=self.trace.blocking(
+            starts.new_tensor, [n]))
         padded = (lens + g - 1) // g * g
         slot = (torch.cumsum(padded, 0) - padded)[run] \
             + torch.arange(n, device=dev) - starts[run]
-        out = tgt.new_full((int(torch.sum(padded)),), -1)
+        out = tgt.new_full((int(self.trace.read(torch.sum(padded))),), -1)
         out[slot] = tgt
         return out.reshape(-1, g)
 
@@ -592,10 +604,11 @@ class HydroSolver:
         right = torch.zeros_like(hsml)
         rho = wngb = dhsml = divv = rotv = None
 
-        for _ in range(MAXITER):
-            with torch.profiler.record_function("sph_density"):
+        tr = self.trace
+        with tr.span("sph.density"):
+            for _ in range(MAXITER):
                 cands = self._gather(depth, False)(tree, tgt, hsml)
-                if bool(cands.overflow):
+                if bool(tr.read(cands.overflow)):
                     self._grow_cap(cands)
                     continue
                 rho, wngb, dhsml, divv, rotv = density_pass(
@@ -609,15 +622,15 @@ class HydroSolver:
                                          self.kernel)
                     wngb = wngb + self.kernel.norm * gwn \
                         / torch.clamp(hinv3, min=1e-37)
-            self.counts["density_iters"] += 1
-            new_hsml, left, right, conv = hsml_update(
-                hsml, left, right, wngb, dhsml, rho,
-                float(cfg.des_num_ngb), float(cfg.max_num_ngb_deviation),
-                self.min_gas_hsml, active, ndims=self.kernel.ndims)
-            done = bool(torch.all(conv | ~active))
-            hsml = new_hsml
-            if done:
-                break
+                tr.count("sph.density_iters")
+                new_hsml, left, right, conv = hsml_update(
+                    hsml, left, right, wngb, dhsml, rho,
+                    float(cfg.des_num_ngb), float(cfg.max_num_ngb_deviation),
+                    self.min_gas_hsml, active, ndims=self.kernel.ndims)
+                done = bool(tr.read(torch.all(conv | ~active)))
+                hsml = new_hsml
+                if done:
+                    break
 
         # finalize (density.c:289-308)
         rho_safe = torch.clamp(rho, min=1e-37)
@@ -685,10 +698,10 @@ class HydroSolver:
         fields, (fac_mu, fac_vsic_fix, hubble_a2) = self.hydro_inputs(
             tree, p, sph, tbi, time_now)
         hsml_all, rho_all = fields[0], fields[1]
-        with torch.profiler.record_function("sph_hydro"):
+        with self.trace.span("sph.hydro"):
             for _ in range(4):
                 cands = self._gather(depth, True)(tree, tgt, hsml_all[safe])
-                if not bool(cands.overflow):
+                if not bool(self.trace.read(cands.overflow)):
                     break
                 self._grow_cap(cands)
             acc, dtent, maxsig = hydro_pass(
@@ -700,7 +713,7 @@ class HydroSolver:
                                         (fac_mu, fac_vsic_fix, hubble_a2))
                 acc, dtent = acc + gacc, dtent + gde
                 maxsig = torch.maximum(maxsig, gms)
-        self.counts["hydro_passes"] += 1
+        self.trace.count("sph.hydro_passes")
         # finalize (hydra.c:317-320) with the COMOVING density; under
         # IsothermEqs gamma-1 = 0 and DtEntropy stays 0
         rho_t = rho_all[safe]

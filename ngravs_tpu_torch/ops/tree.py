@@ -23,6 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..trace import blocking
 from .morton import (MAX_DEPTH, decode_center, level_key2, morton_keys2,
                      sort_by_keys2)
 
@@ -197,7 +198,8 @@ def build_tree(pos, mass, grav, fsoft, aold, hsml=None,
         root_len = torch.as_tensor(root_len, dtype=pos.dtype, device=dev)
     elif box_size > 0:
         corner = torch.zeros(3, dtype=pos.dtype, device=dev)
-        root_len = torch.tensor(box_size, dtype=pos.dtype, device=dev)
+        root_len = blocking(torch.tensor, box_size, dtype=pos.dtype,
+                            device=dev)
     else:
         lo = torch.amin(pos, dim=0)
         hi = torch.amax(pos, dim=0)
@@ -318,7 +320,7 @@ def build_tree(pos, mass, grav, fsoft, aold, hsml=None,
     pcount_all = torch.cat(pcounts)
     m_total = pcount_all.shape[0]
     real_leaf = torch.zeros(m_total, dtype=torch.bool, device=dev)
-    real_leaf[term_node] = True
+    blocking(real_leaf.__setitem__, term_node, True)
     nchunk = torch.where(real_leaf, (pcount_all + 7) // 8, 0).to(torch.int32)
     chunk0 = (torch.cumsum(nchunk, 0) - nchunk).to(torch.int32)
     leaf_row = (chunk0[term_node].long() * 8 + term_rank).to(torch.int32)
@@ -331,7 +333,7 @@ def build_tree(pos, mass, grav, fsoft, aold, hsml=None,
     level_all = torch.cat(levels)
     ngrp = int(ngrp_cap) if ngrp_cap else _p2(max(n // 8, 1024), 1024)
     is_grp = torch.zeros(m_total, dtype=torch.bool, device=dev)
-    is_grp[grp_node] = True
+    blocking(is_grp.__setitem__, grp_node, True)
     nblk_n = torch.where(is_grp, (pcount_all + group_size - 1) // group_size,
                          0).to(torch.int64)
     blk_base = torch.cumsum(nblk_n, 0) - nblk_n
@@ -339,8 +341,8 @@ def build_tree(pos, mass, grav, fsoft, aold, hsml=None,
     # run id of every block slot; slots past the live blocks repeat the
     # last node, as jnp.repeat(total_repeat_length=...) does, and are
     # masked below
-    runid = torch.repeat_interleave(
-        torch.arange(m_total, device=dev), nblk_n)[:ngrp]
+    runid = blocking(torch.repeat_interleave,
+                     torch.arange(m_total, device=dev), nblk_n)[:ngrp]
     if runid.shape[0] < ngrp:
         runid = torch.cat([runid, torch.full((ngrp - runid.shape[0],),
                                              m_total - 1, device=dev)])

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..models.wiring import GravityWiring
+from ..trace import Trace, blocking
 from .lattice import corner_table, lattice_correction
 from .pairwise import (FCOUNT, FMASS, FSOFT, FX, FY, FZ, IGID, IGRAV,
                        pairwise_eval)
@@ -114,11 +115,14 @@ def octet_counts(n: int, depth: int, bucket: int, octet_caps=None):
     return noct
 
 
-def measure_octet_demand(tree: Octree, n: int, depth: int, bucket: int):
-    """Actual octets per level of a built tree (one host fetch)."""
+def measure_octet_demand(tree: Octree, n: int, depth: int, bucket: int,
+                         trace: Trace | None = None):
+    """Actual octets per level of a built tree (one host fetch, through
+    `trace` when given)."""
     caps = level_caps(n, depth, bucket=bucket)
     offs = np.concatenate([[0], np.cumsum(caps)]).astype(np.int64)
-    has = ((tree.node_nchild > 0) & (tree.node_pcount > 0)).cpu().numpy()
+    has = (tree.node_nchild > 0) & (tree.node_pcount > 0)
+    has = (trace.read(has) if trace is not None else has.cpu()).numpy()
     out = [1]
     for lvl in range(1, depth + 1):
         out.append(max(1, int(has[offs[lvl - 1]:offs[lvl]].sum())))
@@ -144,7 +148,7 @@ def build_octet_layout(tree: Octree, n: int, depth: int, bucket: int,
     m = int(offs[-1])
 
     slot8 = torch.full((m,), -1, dtype=torch.int32, device=dev)
-    slot8[0] = 0
+    blocking(slot8.__setitem__, 0, 0)
     child_oct = torch.full((m,), -1, dtype=torch.int32, device=dev)
     ovf = torch.zeros((), dtype=torch.bool, device=dev)
     for lvl in range(depth + 1):
@@ -441,21 +445,19 @@ def lattice_pass(targets: dict, spacked: torch.Tensor, n_src: torch.Tensor,
         corners = corner_table(tables)
     acc = torch.zeros(nb, g, 3, dtype=torch.float32, device=dev)
     pot = torch.zeros(nb, g, dtype=torch.float32, device=dev)
-    with torch.profiler.record_function("lattice_pass"):
-        for sl in _block_chunks(nb, s, g, block_chunk):
-            sp = spacked[sl]
-            col, valid, d = _pair_geometry(targets, sp, sl, n_src, g,
-                                           box_size)
-            pidx = col("grav") * n_gravs \
-                + sp[:, IGRAV, :].view(torch.int32)[:, None, :]
-            fcx, fcy, fcz, pc = lattice_correction(tables, fac_intp, *d,
-                                                   pidx, corners)
-            # masked by a select: rows past n_src are not read
-            sm = sp[:, None, FMASS, :]
-            acc[sl] = torch.stack([torch.sum(torch.where(valid, sm * f, 0.0),
-                                             dim=-1)
-                                   for f in (fcx, fcy, fcz)], dim=-1)
-            pot[sl] = torch.sum(torch.where(valid, sm * pc, 0.0), dim=-1)
+    for sl in _block_chunks(nb, s, g, block_chunk):
+        sp = spacked[sl]
+        col, valid, d = _pair_geometry(targets, sp, sl, n_src, g, box_size)
+        pidx = col("grav") * n_gravs \
+            + sp[:, IGRAV, :].view(torch.int32)[:, None, :]
+        fcx, fcy, fcz, pc = lattice_correction(tables, fac_intp, *d, pidx,
+                                               corners)
+        # masked by a select: rows past n_src are not read
+        sm = sp[:, None, FMASS, :]
+        acc[sl] = torch.stack([torch.sum(torch.where(valid, sm * f, 0.0),
+                                         dim=-1)
+                               for f in (fcx, fcy, fcz)], dim=-1)
+        pot[sl] = torch.sum(torch.where(valid, sm * pc, 0.0), dim=-1)
     return acc.reshape(nb * g, 3), pot.reshape(nb * g)
 
 
@@ -477,7 +479,8 @@ def make_fused_walk(wiring: GravityWiring, n_gravs: int, *,
                     lattice_tables=None,
                     treepm: dict | None = None,
                     octet_caps=None,
-                    pair_eval=pairwise_eval):
+                    pair_eval=pairwise_eval,
+                    trace: Trace | None = None):
     """Build the fused walk.  Returns fn(tree, tgt_sorted, opening_override,
     tables) -> FusedWalkResult.  `chunk_cap`: per-block unified 8-row source
     chunks; `frontier_cap`: per-level frontier slots per block (int or
@@ -490,10 +493,16 @@ def make_fused_walk(wiring: GravityWiring, n_gravs: int, *,
     needs the transition tables sr_ftab and sr_ptab
     (`shortrange.shortrange_tables`).  `pair_eval` is the pair evaluation
     (K1 by default; a test or a benchmark may pass the plain twin).
+    `trace`: the caller's timers and counters (`trace.py`; a fresh one if
+    not given): each batch counts `walk.batches`, its traversal is the
+    span `walk.traverse` and its pair evaluation (with the lattice or
+    tabulated pass) `walk.k1`, the lattice pass inside it `walk.lattice`.
 
-    One host sync per call, the number of active target blocks, and one a
+    One host read per call, the number of active target blocks, and one a
     batch for the torch passes (the lattice pass, the tabulated
     evaluation): the length of the batch's longest source list."""
+    if trace is None:
+        trace = Trace()
     groups = wiring.unique_laws()
     periodic = box_size > 0
     # All or nothing, as the JAX walk's `closed_form`
@@ -598,93 +607,95 @@ def make_fused_walk(wiring: GravityWiring, n_gravs: int, *,
         if int(noct[init_lvl]) > Fo:
             ovf = ovf | True
 
-        for lvl in range(init_lvl, depth + 1):
-            Fo = int(foct.shape[1])
-            F = Fo * 8
-            live_o = torch.arange(Fo, device=dev)[None, :] < nlive[:, None]
-            lvl_live[lvl] = torch.amax(nlive) * 8
+        with trace.span("walk.traverse"):
+            for lvl in range(init_lvl, depth + 1):
+                Fo = int(foct.shape[1])
+                F = Fo * 8
+                live_o = torch.arange(Fo, device=dev)[None, :] < nlive[:, None]
+                lvl_live[lvl] = torch.amax(nlive) * 8
 
-            wn = wtab8[torch.where(live_o, foct, 0).long()].reshape(B, F, W)
-            wn_i = wn.view(torch.int32)
-            live = live_o.repeat_interleave(8, dim=1)       # [B, F]
-            flags = wn_i[:, :, WFLAGS]
-            valid = live & ((flags & 255) != 0)
-            terminal = (flags & 1) > 0
-            nch = wn_i[:, :, WNCHUNK]
-            # nodes under a real shallow leaf carry moments but no chunks;
-            # the preamble already summed those leaves
-            valid = valid & ~(terminal & (nch == 0))
-            center = wn[:, :, WCX:WCZ + 1]
-            cg = wn[:, :, 8:8 + 4 * NG].reshape(B, F, NG, 4)
-            cm = cg[..., 0:3]
-            m_g = cg[..., 3]
-            cell_len = tree.root_len * 2.0 ** -lvl
+                wn = wtab8[torch.where(live_o, foct, 0).long()] \
+                    .reshape(B, F, W)
+                wn_i = wn.view(torch.int32)
+                live = live_o.repeat_interleave(8, dim=1)       # [B, F]
+                flags = wn_i[:, :, WFLAGS]
+                valid = live & ((flags & 255) != 0)
+                terminal = (flags & 1) > 0
+                nch = wn_i[:, :, WNCHUNK]
+                # nodes under a real shallow leaf carry moments but no chunks;
+                # the preamble already summed those leaves
+                valid = valid & ~(terminal & (nch == 0))
+                center = wn[:, :, WCX:WCZ + 1]
+                cg = wn[:, :, 8:8 + 4 * NG].reshape(B, F, NG, 4)
+                cm = cg[..., 0:3]
+                m_g = cg[..., 3]
+                cell_len = tree.root_len * 2.0 ** -lvl
 
-            # per-subgroup opening tests [B, F, S]: every gravity and axis
-            # in one tensor [B, F, S, NG, 3], the squares summed x, y, z
-            # in that order (a few launches a level, not dozens)
-            dd = torch.clamp(_gap(cm[:, :, None], lo_b[:, None, :, None],
-                                  hi_b[:, None, :, None]), min=0.0)
-            sq = dd * dd
-            d2 = sq[..., 0] + sq[..., 1] + sq[..., 2]       # [B, F, S, NG]
-            r2min = torch.clamp(torch.amin(torch.where(
-                m_g[:, :, None, :] > 0, d2, big), dim=-1), max=big)
-            mtot = torch.sum(m_g, dim=-1)                   # [B, F]
+                # per-subgroup opening tests [B, F, S]: every gravity and axis
+                # in one tensor [B, F, S, NG, 3], the squares summed x, y, z
+                # in that order (a few launches a level, not dozens)
+                dd = torch.clamp(_gap(cm[:, :, None], lo_b[:, None, :, None],
+                                      hi_b[:, None, :, None]), min=0.0)
+                sq = dd * dd
+                d2 = sq[..., 0] + sq[..., 1] + sq[..., 2]       # [B, F, S, NG]
+                r2min = torch.clamp(torch.amin(torch.where(
+                    m_g[:, :, None, :] > 0, d2, big), dim=-1), max=big)
+                mtot = torch.sum(m_g, dim=-1)                   # [B, F]
 
-            if rel:
-                must_open_s = (mtot[:, :, None] * cell_len * cell_len
-                               > r2min * r2min * aold_sub[:, None, :])
-            else:
-                must_open_s = cell_len * cell_len > r2min * (theta * theta)
-            # the target subgroup intersects the node: always open; under
-            # TreePM a node beyond Rcut of every subgroup is discarded with
-            # its whole subtree
-            gx = _gap(center[:, :, None], lo_b[:, None], hi_b[:, None])
-            inter = torch.all(gx < 0.6 * cell_len, dim=-1)  # [B, F, S]
-            must_open_s = must_open_s | inter
-            if rcut > 0:
-                byd = torch.any(gx - 0.5 * cell_len > rcut, dim=-1)
-                valid = valid & ~torch.all(byd, dim=-1)
-            must_open = torch.any(must_open_s & sub_ok[:, None, :], dim=-1)
-            accept = valid & ~must_open
-            rest = valid & must_open
-            leaf_here = rest & terminal
-            expand = rest & ~terminal
+                if rel:
+                    must_open_s = (mtot[:, :, None] * cell_len * cell_len
+                                   > r2min * r2min * aold_sub[:, None, :])
+                else:
+                    must_open_s = cell_len * cell_len > r2min * (theta * theta)
+                # the target subgroup intersects the node: always open; under
+                # TreePM a node beyond Rcut of every subgroup is discarded with
+                # its whole subtree
+                gx = _gap(center[:, :, None], lo_b[:, None], hi_b[:, None])
+                inter = torch.all(gx < 0.6 * cell_len, dim=-1)  # [B, F, S]
+                must_open_s = must_open_s | inter
+                if rcut > 0:
+                    byd = torch.any(gx - 0.5 * cell_len > rcut, dim=-1)
+                    valid = valid & ~torch.all(byd, dim=-1)
+                must_open = torch.any(must_open_s & sub_ok[:, None, :], dim=-1)
+                accept = valid & ~must_open
+                rest = valid & must_open
+                leaf_here = rest & terminal
+                expand = rest & ~terminal
 
-            # accepted octet records: NG-chunk runs + per-gravity 8-bit
-            # slot masks (accepted AND mass>0)
-            acc_o = accept.reshape(B, Fo, 8)
-            hasg = ((flags.reshape(B, Fo, 8)[..., None]
-                     >> (1 + garange)) & 1) > 0             # [B, Fo, 8, NG]
-            mbits = torch.sum((acc_o[..., None] & hasg).to(torch.int32)
-                              * pow2[None, None, :, None], dim=2,
-                              dtype=torch.int32)           # [B, Fo, NG]
-            mo_ls.append(nstart // 8 + foct.long() * NG)
-            ml_ls.append(torch.where(acc_o.any(dim=2), NG, 0))
-            mm_ls.append(mbits)
-            nc_ls.append(torch.where(leaf_here, nch, 0).long())
-            c0_ls.append(wn_i[:, :, WCHUNK0].long())
+                # accepted octet records: NG-chunk runs + per-gravity 8-bit
+                # slot masks (accepted AND mass>0)
+                acc_o = accept.reshape(B, Fo, 8)
+                hasg = ((flags.reshape(B, Fo, 8)[..., None]
+                         >> (1 + garange)) & 1) > 0         # [B, Fo, 8, NG]
+                mbits = torch.sum((acc_o[..., None] & hasg).to(torch.int32)
+                                  * pow2[None, None, :, None], dim=2,
+                                  dtype=torch.int32)           # [B, Fo, NG]
+                mo_ls.append(nstart // 8 + foct.long() * NG)
+                ml_ls.append(torch.where(acc_o.any(dim=2), NG, 0))
+                mm_ls.append(mbits)
+                nc_ls.append(torch.where(leaf_here, nch, 0).long())
+                c0_ls.append(wn_i[:, :, WCHUNK0].long())
 
-            if lvl == depth:
-                break  # depth-level nodes are terminal by construction
+                if lvl == depth:
+                    break  # depth-level nodes are terminal by construction
 
-            # expand: each opened node emits ONE child octet id, compacted
-            # selected-first by a stable sort
-            Fn = min(foct_l[lvl + 1], int(noct[lvl + 1]))
-            co = wn_i[:, :, WCHOCT]
-            exp_ok = expand & (co >= 0)
-            total = torch.sum(exp_ok, dim=1)
-            order = torch.sort((~exp_ok).to(torch.uint8), dim=1,
-                               stable=True).indices
-            co_sorted = torch.gather(co, 1, order)
-            if co_sorted.shape[1] >= Fn:
-                foct = co_sorted[:, :Fn]
-            else:
-                foct = torch.cat([co_sorted, torch.zeros(
-                    B, Fn - co_sorted.shape[1], dtype=torch.int32,
-                    device=dev)], dim=1)
-            nlive = torch.clamp(total, max=Fn)
-            ovf = ovf | torch.any(total > Fn)
+                # expand: each opened node emits ONE child octet id, compacted
+                # selected-first by a stable sort
+                Fn = min(foct_l[lvl + 1], int(noct[lvl + 1]))
+                co = wn_i[:, :, WCHOCT]
+                exp_ok = expand & (co >= 0)
+                total = torch.sum(exp_ok, dim=1)
+                order = torch.sort((~exp_ok).to(torch.uint8), dim=1,
+                                   stable=True).indices
+                co_sorted = torch.gather(co, 1, order)
+                if co_sorted.shape[1] >= Fn:
+                    foct = co_sorted[:, :Fn]
+                else:
+                    foct = torch.cat([co_sorted, torch.zeros(
+                        B, Fn - co_sorted.shape[1], dtype=torch.int32,
+                        device=dev)], dim=1)
+                nlive = torch.clamp(total, max=Fn)
+                ovf = ovf | torch.any(total > Fn)
 
         # ------------------------------------------------------------
         # Unified chunk list: every record is a contiguous chunk run
@@ -735,23 +746,28 @@ def make_fused_walk(wiring: GravityWiring, n_gravs: int, *,
                        mass=flat(tgt["mass"]), grav=flat(tgt["grav"]),
                        fsoft=flat(tgt["fsoft"]), gid=flat(tgid))
         n_src = (torch.clamp(n_uch, max=CL) * 8).to(torch.int32).reshape(B, 1)
-        if tabulated or lattice_tables is not None:
-            # the torch passes read the batch's live rows only: the buffer
-            # cut at its longest list (one host read a batch; the JAX walk's
-            # loop also runs to the largest n_src)
-            live = max(8, -(-int(torch.amax(n_src)) // 8) * 8)
-            lbuf = ubuf[:, :, :live]
-        if tabulated:
-            a3, pp, nv = tabulated_pair_eval(targets, lbuf, n_src, want_pot,
-                                             **tab_kw)
-        else:
-            a3, pp, nv = pair_eval(targets, ubuf, n_src, want_pot, **pair_kw)
-        if lattice_tables is not None:
-            la, lp = lattice_pass(targets, lbuf, n_src, lattice_tables, NG,
-                                  float(box_size), corners=corners)
-            a3 = a3 + la
-            if want_pot:
-                pp = pp + lp
+        with trace.span("walk.k1"):
+            if tabulated or lattice_tables is not None:
+                # the torch passes read the batch's live rows only: the
+                # buffer cut at its longest list (one host read a batch;
+                # the JAX walk's loop also runs to the largest n_src)
+                live = max(8, -(-int(trace.read(torch.amax(n_src))) // 8)
+                           * 8)
+                lbuf = ubuf[:, :, :live]
+            if tabulated:
+                a3, pp, nv = tabulated_pair_eval(targets, lbuf, n_src,
+                                                 want_pot, **tab_kw)
+            else:
+                a3, pp, nv = pair_eval(targets, ubuf, n_src, want_pot,
+                                       **pair_kw)
+            if lattice_tables is not None:
+                with trace.span("walk.lattice"):
+                    la, lp = lattice_pass(targets, lbuf, n_src,
+                                          lattice_tables, NG,
+                                          float(box_size), corners=corners)
+                a3 = a3 + la
+                if want_pot:
+                    pp = pp + lp
         return a3.reshape(B, G, 3), pp.reshape(B, G), nv.reshape(B, G), \
             ovf, stats, lvls
 
@@ -783,12 +799,13 @@ def make_fused_walk(wiring: GravityWiring, n_gravs: int, *,
         tgt = tgt_sorted.long()
         tlive = tgt >= 0
         act = torch.zeros(n + 1, dtype=torch.bool, device=dev)
-        act[torch.where(tlive, tgt, n)] = True
+        blocking(act.__setitem__, torch.where(tlive, tgt, n), True)
         act = act[:n]
         blk_act = torch.zeros(ngrp + 1, dtype=torch.bool, device=dev)
-        blk_act[torch.where(act, tree.pblk.long(), ngrp)] = True
+        blocking(blk_act.__setitem__,
+                 torch.where(act, tree.pblk.long(), ngrp), True)
         blk_act = blk_act[:ngrp] & (tree.blk_cnt > 0)
-        nact = int(torch.sum(blk_act))                   # the host sync
+        nact = int(trace.read(torch.sum(blk_act)))       # the host read
         sort_key = torch.where(blk_act, -tree.blk_level.long(), INT32_MAX)
         sorted_ids = torch.sort(sort_key, stable=True).indices
         nbatch = (nact + B - 1) // B
@@ -803,6 +820,7 @@ def make_fused_walk(wiring: GravityWiring, n_gravs: int, *,
         buf = torch.zeros(n + 1, 5, dtype=torch.float32, device=dev)
         giota = torch.arange(G, device=dev)
         for bi in range(nbatch):
+            trace.count("walk.batches")
             ids = blk_ids[bi * B:(bi + 1) * B]
             vb = ids >= 0
             ids0 = ids.clamp(min=0)

@@ -37,13 +37,12 @@ by a pmax'd value, so every rank enters the same collectives.
 
 from __future__ import annotations
 
-import time as _time
 
 import torch
 
 from ..ops.sph import HydroSolver, _min_image, kernel_wk_dwk
 from ..ops.tree import _compact_rows
-from .full_sharded import (at_sync_point, finish_sph_timer, gas_targets,
+from .full_sharded import (at_sync_point, gas_targets,
                            update_node_hmax)
 from .tree_sharded import LetTreeStep
 
@@ -248,8 +247,8 @@ class LetFullStep(LetTreeStep):
     Called as `ReplicatedFullStep`.  `caps` (shared with the runner and the
     other step variant) gains "ghost" and "margin"; `ghost_rows` holds the
     rows received in rounds A and B at the last step, `ghost_retries` and
-    `margin_retries` count the cap growths and the density reruns,
-    `sph_seconds` the SPH passes' wall time."""
+    `margin_retries` count the cap growths and the density reruns; the
+    SPH passes are the span `sph` of the rank's trace."""
 
     def __init__(self, cfg, units, wiring, tables, mesh, opening=None,
                  pm_step=True, solver=None, caps=None, hydro=None):
@@ -257,29 +256,31 @@ class LetFullStep(LetTreeStep):
                          pm_step=pm_step, solver=solver, caps=caps)
         self.caps.setdefault("ghost", GHOST_CAP)
         self.caps.setdefault("margin", GHOST_MARGIN)
-        self.hydro = hydro if hydro is not None else HydroSolver(cfg, units)
+        self.hydro = hydro if hydro is not None \
+            else HydroSolver(cfg, units, trace=mesh.trace)
         self.box3 = tuple(cfg.box_sizes) if cfg.periodic \
             and cfg.box_size > 0 else None
         self.ghost_rows = [0, 0]
         self.ghost_retries = 0
         self.margin_retries = 0
-        self.sph_seconds = 0.0
 
     def density_only(self, p, sph, ti: int):
         """As `ReplicatedFullStep.density_only`, on the local tree with the
         round-A ghosts."""
         p, sph, mass, fsoft, aold, hsml = at_sync_point(self, p, sph, ti)
         self._tree, _ = self._local_tree(p, mass, fsoft, aold, hsml)
-        t0 = _time.perf_counter()
-        sph = self._density(p, sph, ti)
-        finish_sph_timer(self, t0, p.pos.device)
+        tr = self.mesh.trace
+        with tr.span("sph"):
+            sph = self._density(p, sph, ti)
+            tr.sync(p.pos.device)
         return sph
 
     def _sph_forces(self, p, sph, ti_next: int, time_next: float):
-        t0 = _time.perf_counter()
-        sph = self._density(p, sph, ti_next)
-        sph = self._hydro(p, sph, ti_next, time_next)
-        finish_sph_timer(self, t0, p.pos.device)
+        tr = self.mesh.trace
+        with tr.span("sph"):
+            sph = self._density(p, sph, ti_next)
+            sph = self._hydro(p, sph, ti_next, time_next)
+            tr.sync(p.pos.device)
         return sph
 
     # ------------------------------------------------------------------

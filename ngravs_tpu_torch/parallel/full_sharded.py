@@ -38,7 +38,6 @@ passes hold no collective).
 
 from __future__ import annotations
 
-import time as _time
 from types import SimpleNamespace
 
 import numpy as np
@@ -107,12 +106,6 @@ def gas_targets(p, sph, ti: int):
         & (sph.hsml > 0)
 
 
-def finish_sph_timer(step, t0: float, dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    step.sph_seconds += _time.perf_counter() - t0
-
-
 class ReplicatedFullStep(ReplicatedTreeStep):
     """The replicated step with gas: gravity as `ReplicatedTreeStep` (the
     tree built with the gathered smoothing lengths), then the SPH passes
@@ -121,15 +114,15 @@ class ReplicatedFullStep(ReplicatedTreeStep):
     Called as step(p, ti_current, ti_next, time_next[, pm_beg, pm_end],
     *mode_extras, sph=sph) -> StepResult with `.sph`.  `hydro`: a
     `HydroSolver` the runner shares between the step variants (its
-    candidate cap and counts).  `sph_seconds` sums the SPH passes' wall
-    time (the card synchronised)."""
+    candidate cap).  The SPH passes are the span `sph` of the rank's trace
+    (`mesh.trace`), ending synchronised."""
 
     def __init__(self, cfg, units, wiring, tables, mesh, opening=None,
                  pm_step=True, solver=None, hydro=None):
         super().__init__(cfg, units, wiring, tables, mesh, opening=opening,
                          pm_step=pm_step, solver=solver)
-        self.hydro = hydro if hydro is not None else HydroSolver(cfg, units)
-        self.sph_seconds = 0.0
+        self.hydro = hydro if hydro is not None \
+            else HydroSolver(cfg, units, trace=mesh.trace)
 
     def density_only(self, p, sph, ti: int):
         """The density pass alone for the gas active at `ti` (the
@@ -211,41 +204,41 @@ class ReplicatedFullStep(ReplicatedTreeStep):
     def _sph(self, p, sph, ti: int, time_next):
         """The density pass (and with `time_next` the hydro pass) of the
         active gas at `ti` on the tree of the last build."""
-        t0 = _time.perf_counter()
-        cfg, mesh, hs = self.cfg, self.mesh, self.hydro
-        tree = self._tree
-        depth, tbi = self.solver.depth, float(self.tbi)
-        pg, full = self._gathered(p, sph)
-        sel = self._slice(tree, pg, ti)
-        if sel is None:
-            return sph
-        mask, n_mine, _ = sel
-        full = self._share(tree, sel, hs.density(
-            tree, pg, full, ti, n_mine, depth, tbi, mask=mask), DENSITY_OUT)
-        names = DENSITY_OUT
-        if time_next is not None:
-            # the node hmax from the converged smoothing lengths
-            # (accel.c:60-89, force_update_hmax)
-            tree = update_node_hmax(
-                tree._replace(hsml_s=full.hsml[tree.order.long()]), depth,
-                cfg.tree_bucket_size)
-            full = self._share(tree, sel, hs.hydro(
-                tree, pg, full, ti, n_mine, depth, tbi, time_next,
-                mask=mask), HYDRO_OUT)
-            names = DENSITY_OUT + HYDRO_OUT
-        # my rows back: the targets' new values (the others are unchanged)
-        inv = torch.empty_like(self._perm)
-        inv[self._perm] = torch.arange(self._perm.shape[0],
-                                       device=inv.device)
-        nloc = p.pos.shape[0]
-        mine = inv[mesh.rank * nloc:(mesh.rank + 1) * nloc]
-        tgt = gas_targets(p, sph, ti)
-        upd = {}
-        for k in names:
-            new = getattr(full, k)[mine]
-            old = getattr(sph, k)
-            upd[k] = torch.where(tgt.reshape((-1,) + (1,) * (old.dim() - 1)),
-                                 new, old)
-        sph = sph.replace(**upd)
-        finish_sph_timer(self, t0, p.pos.device)
+        with self.mesh.trace.span("sph"):
+            cfg, mesh, hs = self.cfg, self.mesh, self.hydro
+            tree = self._tree
+            depth, tbi = self.solver.depth, float(self.tbi)
+            pg, full = self._gathered(p, sph)
+            sel = self._slice(tree, pg, ti)
+            if sel is None:
+                return sph
+            mask, n_mine, _ = sel
+            full = self._share(tree, sel, hs.density(
+                tree, pg, full, ti, n_mine, depth, tbi, mask=mask), DENSITY_OUT)
+            names = DENSITY_OUT
+            if time_next is not None:
+                # the node hmax from the converged smoothing lengths
+                # (accel.c:60-89, force_update_hmax)
+                tree = update_node_hmax(
+                    tree._replace(hsml_s=full.hsml[tree.order.long()]), depth,
+                    cfg.tree_bucket_size)
+                full = self._share(tree, sel, hs.hydro(
+                    tree, pg, full, ti, n_mine, depth, tbi, time_next,
+                    mask=mask), HYDRO_OUT)
+                names = DENSITY_OUT + HYDRO_OUT
+            # my rows back: the targets' new values (the others are unchanged)
+            inv = torch.empty_like(self._perm)
+            inv[self._perm] = torch.arange(self._perm.shape[0],
+                                           device=inv.device)
+            nloc = p.pos.shape[0]
+            mine = inv[mesh.rank * nloc:(mesh.rank + 1) * nloc]
+            tgt = gas_targets(p, sph, ti)
+            upd = {}
+            for k in names:
+                new = getattr(full, k)[mine]
+                old = getattr(sph, k)
+                upd[k] = torch.where(tgt.reshape((-1,) + (1,) * (old.dim() - 1)),
+                                     new, old)
+            sph = sph.replace(**upd)
+            self.mesh.trace.sync(p.pos.device)
         return sph

@@ -19,7 +19,8 @@ Every collective the package uses is a method of `Mesh` and nowhere else.
 NCCL takes device tensors; gloo moves host memory, so under gloo a CUDA
 tensor is copied to the host before each collective and back after (the
 backend is fixed at launch).  Flags and counts travel as int32, never as
-bool.  `Mesh.stats` counts the calls and the bytes each rank sends.
+bool.  The rank's trace (`Mesh.trace`, `ngravs_tpu_torch/trace.py`) counts
+the calls (`mesh.calls`) and the bytes each rank sends (`mesh.bytes`).
 """
 
 from __future__ import annotations
@@ -37,13 +38,16 @@ from ..constants import SOFTFAC_SPLINE, TIMEBASE
 from ..integrate.kdk import cosmo_factors, drift, box_wrap, kick
 from ..integrate.timeline import timebase_interval
 from ..ops.direct import ParticleSlice, pairwise_forces
+from ..trace import Trace
 
 INERT_ENDSTEP = 2 ** 30     # padding rows are never active
 COLLECTIVE_TIMEOUT_S = 600  # a collective waiting this long for a rank fails
 
 
 class Mesh:
-    """This rank's place in the run: rank, world size, device, backend.
+    """This rank's place in the run: rank, world size, device, backend,
+    and the rank's trace (its timers and counters, shared by the steps and
+    solvers of the rank).
 
     The collectives replace the JAX package's axis primitives:
     `all_gather` (tiled `lax.all_gather`), `all_to_all` (tiled
@@ -55,10 +59,7 @@ class Mesh:
         self.size = int(size)
         self.device = torch.device(device)
         self.backend = backend
-        self.stats = dict(calls=0, bytes=0)
-
-    def reset_stats(self):
-        self.stats = dict(calls=0, bytes=0)
+        self.trace = Trace()
 
     def _wire(self, t: torch.Tensor) -> torch.Tensor:
         """t as the backend moves it: contiguous, bool as int32, on the
@@ -68,8 +69,8 @@ class Mesh:
         if self.backend == "gloo" and t.device.type != "cpu":
             t = t.cpu()
         t = t.contiguous()
-        self.stats["calls"] += 1
-        self.stats["bytes"] += t.numel() * t.element_size()
+        self.trace.count("mesh.calls")
+        self.trace.count("mesh.bytes", t.numel() * t.element_size())
         return t
 
     def _home(self, t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:

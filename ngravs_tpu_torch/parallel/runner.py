@@ -95,16 +95,19 @@ class DistributedSimulation:
                              margin=GHOST_MARGIN)
         self.force_soft = np.array(cfg.softening, np.float32) \
             * C.SOFTFAC_SPLINE
+        # the rank's timers and counters (`Mesh.trace`)
+        self.trace = mesh.trace
         self.solver = GravitySolver(cfg, self.wiring, self.force_soft,
                                     self.units.G, hubble=self.units.hubble,
-                                    device=self.device)
+                                    device=self.device, trace=self.trace)
         self.n_real = int(particles.pos.shape[0])
         # initial-order restoration key for snapshots (unique Gadget IDs)
         pid = particles.pid.cpu().numpy()
         self._pid_sorted = np.sort(pid)
         self._pid_rank = np.argsort(pid)
 
-        self.hydro = HydroSolver(cfg, self.units) if self.has_gas else None
+        self.hydro = HydroSolver(cfg, self.units, trace=self.trace) \
+            if self.has_gas else None
         # the initial decomposition (no costs yet: count-balanced), on the
         # particles' bounding cube as the JAX runner makes it
         host = Particles(**{k: v.cpu() for k, v in vars(particles).items()})
@@ -234,11 +237,6 @@ class DistributedSimulation:
         margin (LET with gas), so far."""
         return self._step_sum("ghost_retries"), \
             self._step_sum("margin_retries")
-
-    @property
-    def sph_seconds(self) -> float:
-        """Wall seconds in the SPH passes, so far (the card synchronised)."""
-        return self._step_sum("sph_seconds")
 
     @property
     def time(self) -> float:

@@ -124,7 +124,8 @@ class _TreeStepBase:
         if solver is None:
             solver = GravitySolver(
                 cfg, wiring, np.array(cfg.softening, np.float32)
-                * SOFTFAC_SPLINE, units.G, hubble=units.hubble, device=dev)
+                * SOFTFAC_SPLINE, units.G, hubble=units.hubble, device=dev,
+                trace=mesh.trace)
         self.solver = solver
         if opening is None:
             opening = "bh" if cfg.type_of_opening_criterion == 0 \

@@ -37,6 +37,7 @@ from ngravs_tpu_torch.ops import pairwise as tpw
 from ngravs_tpu_torch.ops.pairwise import (FMASS, FSOFT, IGID, pairwise_eval,
                                            pairwise_eval_torch)
 from ngravs_tpu_torch.particles import Particles
+from ngravs_tpu_torch.trace import Trace
 
 pytestmark = pytest.mark.cuda
 NB, G, S = 8, 64, 512
@@ -106,11 +107,13 @@ def _term_scales(targets, sp, n_src):
 @pytest.mark.parametrize("want_pot", [True, False])
 def test_kernel_matches_twin(cuda, want_pot):
     targets, sp, n_src = _inputs()
-    before = pairwise_eval.launches
-    acc, pot, nia = pairwise_eval({k: v.to(cuda) for k, v in targets.items()},
-                                  sp.to(cuda), n_src.to(cuda), want_pot)
+    trace = Trace()
+    with trace.span("k1"):
+        acc, pot, nia = pairwise_eval(
+            {k: v.to(cuda) for k, v in targets.items()}, sp.to(cuda),
+            n_src.to(cuda), want_pot)
     torch.cuda.synchronize()
-    assert pairwise_eval.launches == before + 1
+    assert sum(tpw.instance_counts(trace).values()) == 1
     acc_t, pot_t, nia_t = pairwise_eval_torch(targets, sp, n_src, want_pot)
     scale = _term_scales(targets, sp, n_src)
     assert bool(((acc.cpu() - acc_t).abs()
@@ -300,11 +303,12 @@ def test_k1_instances_match_twin(cuda, case, want_pot):
     kw = dict(wiring=w, box_size=box, treepm_asmth=asmth)
     name = tpw.instance_name(tpw.instance_flags(w, box, None, asmth,
                                                 want_pot))
-    before = pairwise_eval.counts.get(name, 0)
-    a, p, n = pairwise_eval({k: v.to(cuda) for k, v in targets.items()},
-                            sp.to(cuda), n_src.to(cuda), want_pot, **kw)
+    trace = Trace()
+    with trace.span("k1"):
+        a, p, n = pairwise_eval({k: v.to(cuda) for k, v in targets.items()},
+                                sp.to(cuda), n_src.to(cuda), want_pot, **kw)
     torch.cuda.synchronize()
-    assert pairwise_eval.counts[name] == before + 1
+    assert tpw.instance_counts(trace) == {name: 1}
     at, pt, nt = pairwise_eval_torch(targets, sp, n_src, want_pot, **kw)
     scale = _k1_terms(w, targets, sp, n_src, box, asmth, acc)
     assert bool(((a.cpu() - at).abs() <= RTOL_TERMS * scale[:, :3]).all())
@@ -363,7 +367,6 @@ def test_box_path_on_cuda_matches_cpu(cuda):
     same timeline and PM window, positions within 1e-5 relative, accel_pm
     within 1e-4 of its largest value (the FFTs sum in other orders)."""
     sims = _box_sims(("cpu", cuda))
-    before = pairwise_eval.launches
     for _ in range(4):
         for s_ in sims:
             s_.step()
@@ -374,8 +377,9 @@ def test_box_path_on_cuda_matches_cpu(cuda):
         a0, a1 = sims[0].p.accel_pm, sims[1].p.accel_pm.cpu()
         assert float((a0 - a1).abs().max()) <= 1e-4 * float(a0.abs().max())
     assert torch.equal(sims[0].p.ti_endstep, sims[1].p.ti_endstep.cpu())
-    assert pairwise_eval.launches > before
-    assert any(k.startswith("K1bcd") for k in pairwise_eval.counts)
+    assert sum(tpw.instance_counts(sims[1].trace).values()) > 0
+    assert any(k.startswith("K1bcd")
+               for k in tpw.instance_counts(sims[1].trace))
 
 
 def _potential_on_both(sims, instance, rtol):
@@ -384,11 +388,11 @@ def _potential_on_both(sims, instance, rtol):
     instance with the potential) launched."""
     for s_ in sims:
         s_.step()
-    tpw.reset_counts()
+    before = tpw.instance_counts(sims[1].trace).get(instance, 0)
     for s_ in sims:
         s_.update_full_potential()
-    assert tpw.pairwise_eval.counts.get(instance, 0) > 0, \
-        tpw.pairwise_eval.counts
+    assert tpw.instance_counts(sims[1].trace).get(instance, 0) > before, \
+        tpw.instance_counts(sims[1].trace)
     p0, p1 = sims[0].p.potential, sims[1].p.potential.cpu()
     assert bool(torch.isfinite(p1).all()) and float(p0.abs().max()) > 0
     assert float((p0 - p1).abs().max()) <= rtol * float(p0.abs().max())
@@ -442,10 +446,9 @@ def test_bam_accumulator_pass_on_cuda_matches_cpu(cuda):
     sims = [Simulation(cfg, particles=Particles.create(
         pos, np.zeros_like(pos), mass * 50 / n, np.arange(n), ptype,
         cfg.type_to_grav, device=d), log_dir="") for d in ("cpu", cuda)]
-    before = pairwise_eval.counts.get("K1b+count", 0)
     for s_ in sims:
         s_.compute_forces()
-    assert pairwise_eval.counts.get("K1b+count", 0) > before
+    assert tpw.instance_counts(sims[1].trace).get("K1b+count", 0) > 0
     a0, a1 = sims[0].p.accel, sims[1].p.accel.cpu()
     bam = sims[0].p.grav == 1
     assert bool(bam.any()) and float(a0[bam].norm(dim=1).max()) \
@@ -488,10 +491,9 @@ def test_three_species_treepm_pass_on_cuda_matches_cpu(cuda):
         pos, vel, mass, np.arange(3 * n), ptype, cfg.type_to_grav,
         device=d), log_dir="") for d in ("cpu", cuda)]
     assert len(sims[1].wiring.unique_laws()) == 3
-    before = pairwise_eval.counts.copy()
     for s_ in sims:
         s_.compute_forces(full=True)
-    assert any(v > before.get(k, 0) for k, v in pairwise_eval.counts.items()
+    assert any(v > 0 for k, v in tpw.instance_counts(sims[1].trace).items()
                if k.startswith("K1bcd"))
     for name, rtol in (("accel", 1e-5), ("accel_pm", 1e-4)):
         a0 = getattr(sims[0].p, name)
@@ -687,13 +689,12 @@ def test_gas_box_force_pass_on_cuda_matches_cpu(cuda):
     a0, a1 = sims[0].p.accel, sims[1].p.accel.cpu()
     assert float((a0 - a1).abs().max()) <= 1e-5 * float(a0.abs().max())
     _assert_gas_close(*sims, n, 1e-5)
-    assert sims[1].hydro.counts == sims[0].hydro.counts
+    assert sims[1].trace.prefixed("sph.") == sims[0].trace.prefixed("sph.")
     assert float(sims[1].sph.max_signal_vel[:n].min()) > 0
 
 
 def test_gas_box_steps_on_cuda_match_cpu(cuda):
     sims, n = _gas_box_sims(cuda)
-    before = pairwise_eval.counts.copy()
     for _ in range(3):
         for s_ in sims:
             s_.step()
@@ -704,7 +705,7 @@ def test_gas_box_steps_on_cuda_match_cpu(cuda):
         p0, p1 = sims[0].p.pos, sims[1].p.pos.cpu()
         assert float((p0 - p1).abs().max()) <= 1e-5 * float(p0.abs().max())
         _assert_gas_close(*sims, n, 1e-4)
-    assert any(v > before.get(k, 0) for k, v in pairwise_eval.counts.items()
+    assert any(v > 0 for k, v in tpw.instance_counts(sims[1].trace).items()
                if k.startswith("K1bcd"))
 
 
@@ -895,7 +896,7 @@ def test_tree_segment_on_cuda_matches_single_stepping(cuda):
         while sim.ti_current < TIMEBASE and sim.time <= kw["time_max"]:
             sim.step()
     assert b.step_count == a.step_count and b.ti_current == a.ti_current
-    assert b.seg_counts["steps"] > 0
+    assert b.trace.counts["segment.steps"] > 0
     assert torch.equal(a.p.ti_endstep, b.p.ti_endstep)
     assert float((a.p.pos - b.p.pos).abs().max()) <= 2e-3
     assert float((a.p.vel - b.p.vel).abs().max()) <= 2e-3

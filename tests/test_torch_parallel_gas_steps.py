@@ -254,7 +254,8 @@ def test_frontier_overflow_grows_the_frontier_cap():
     small.frontier_cap = 4
     a = big.density(tree, p, sph, 0, n_gas, 6, 1.0)
     b = small.density(tree, p, sph, 0, n_gas, 6, 1.0)
-    assert small.counts["cap_growths"] >= 1 and small.frontier_cap > 4
+    assert small.trace.counts["sph.cap_growths"] >= 1 \
+        and small.frontier_cap > 4
     assert small.cand_cap == big.cand_cap
     for k in ("density", "hsml", "num_ngb"):
         assert torch.equal(getattr(a, k), getattr(b, k)), k

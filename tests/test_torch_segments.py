@@ -108,7 +108,7 @@ def test_direct_segment_is_bit_identical():
         calls += 1
     assert b.step_count == a.step_count and b.ti_current == a.ti_current
     assert calls < a.step_count / 2
-    assert b.seg_counts["segments"] >= 1
+    assert b.trace.counts["segment.segments"] >= 1
     for k in ("pos", "vel", "ti_endstep", "accel"):
         assert torch.equal(getattr(a.p, k), getattr(b.p, k)), k
     assert a.num_force_updates == b.num_force_updates
@@ -214,9 +214,9 @@ def _run_both(ts, js, steps, tmp_path, freq, pm=False):
     assert ts.num_force_updates == js.num_force_updates
     want = _jax_modes(tmp_path / "jax" / "info.txt", segments, ts.p.n, freq)
     # no cap overflow, so every recorded step was committed
-    assert ts.seg_counts["retries"] == 0
+    assert ts.trace.counts.get("segment.retries", 0) == 0
     assert modes == want
-    assert [ts.seg_counts[m] for m in TREE_MODES] == \
+    assert [ts.trace.counts.get("segment." + m, 0) for m in TREE_MODES] == \
         [want.count(m) for m in TREE_MODES]
     return want
 
@@ -371,14 +371,14 @@ def test_overflowing_segment_resumes_on_the_same_trajectory():
     small.solver.fcaps["frontier"] = (8,) * (small.solver.depth + 1)
     small.solver.fcaps["chunk"] = 8
     small.step()
-    assert small.seg_counts["retries"] >= 1
+    assert small.trace.counts["segment.retries"] >= 1
     assert small.step_count > 2
     ample = _port(kw, *_uniform(256, 2), seg=8)
     ample.step()
     # the caps the small run grew to, which never overflow
     ample.solver.fcaps = dict(small.solver.fcaps)
     ample.step()
-    assert ample.seg_counts["retries"] == 0
+    assert ample.trace.counts.get("segment.retries", 0) == 0
     while ample.step_count < small.step_count:
         ample.step()
     assert ample.step_count == small.step_count
@@ -386,5 +386,5 @@ def test_overflowing_segment_resumes_on_the_same_trajectory():
     for k in ("pos", "vel", "accel", "ti_endstep"):
         assert torch.equal(getattr(small.p, k), getattr(ample.p, k)), k
     # the frozen steps are not counted: the committed steps by mode agree
-    assert [small.seg_counts[m] for m in TREE_MODES] == \
-        [ample.seg_counts[m] for m in TREE_MODES]
+    assert [small.trace.counts.get("segment." + m, 0) for m in TREE_MODES] \
+        == [ample.trace.counts.get("segment." + m, 0) for m in TREE_MODES]

@@ -190,7 +190,7 @@ def test_stop_file_and_unported_options(tmp_path):
         seg.step()
         ticks.append(seg.ti_current)
     assert 0 < ticks[0] < ticks[1] and seg.step_count >= 3
-    assert seg.seg_counts["segments"] >= 1
+    assert seg.trace.counts["segment.segments"] >= 1
     # the periodic pure-tree run (ROADMAP item 13) runs: the lattice tables
     # are built and the steps stay inside the box
     param2, _, _ = _tiny_run(tmp_path, "PeriodicBoundariesOn 1\nBoxSize 1\n")

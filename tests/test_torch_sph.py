@@ -451,7 +451,7 @@ def test_hydro_solver_density_matches(monkeypatch):
                                    "num_ngb")}, "cpu")
     solver = tsph.HydroSolver(tcfg, None)
     got = solver.density(t, tp, ts, 0, n, DEPTH, 1e-3)
-    assert solver.counts["density_iters"] == len(calls) >= 3
+    assert solver.trace.counts["sph.density_iters"] == len(calls) >= 3
     for name in ("hsml", "density", "num_ngb", "pressure"):
         np.testing.assert_allclose(getattr(got, name).numpy(),
                                    np.asarray(getattr(want, name)),

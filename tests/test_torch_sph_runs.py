@@ -256,7 +256,7 @@ def test_gas_box_slice_matches_jax():
     assert max(active) == n
     assert ts.pm_ti_endstep > 0 and bool(ts.p.accel_pm.abs().max() > 0)
     assert ts.dt_displacement == js.dt_displacement
-    assert ts.hydro.counts["hydro_passes"] == 5
+    assert ts.trace.counts["sph.hydro_passes"] == 5
 
 
 def test_open_box_gas_run_matches_jax():

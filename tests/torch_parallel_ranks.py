@@ -163,11 +163,11 @@ def simulate(mesh, out, cfg_kw, inp_path, opts):
     it and finish again), snapshot (write one set at the end),
     resume_from (a restart file to start from), entropy_is_u (the inputs'
     gas entropy holds u).  Inputs with `s_<field>` arrays carry gas."""
-    from ngravs_tpu_torch.ops import pairwise
+    from ngravs_tpu_torch.ops.pairwise import instance_counts
     from ngravs_tpu_torch.parallel.runner import DistributedSimulation
     cfg = config(cfg_kw)
     inp = dict(np.load(inp_path))
-    pairwise.reset_counts()
+    k1_before = sum(instance_counts(mesh.trace).values())
 
     sph = None
     if "s_entropy" in inp:
@@ -205,7 +205,7 @@ def simulate(mesh, out, cfg_kw, inp_path, opts):
                aphys_old=p.aphys_old.numpy(), syncs=np.array(syncs),
                local_pid=sim.p.pid.cpu().numpy(),
                updates=sim.num_force_updates,
-               k1=pairwise.pairwise_eval.launches)
+               k1=sum(instance_counts(mesh.trace).values()) - k1_before)
     if cfg.flexsteps:
         res["present"] = np.array([sim.present_min_step,
                                    sim.present_max_step])

@@ -66,8 +66,9 @@ def run(n_clump: int, split_level):
                                n).shape[0]
     print(f"2 x {n_clump} gas, split_level {split_level}: {blocks} blocks "
           f"of {h.group}, cand_cap {h.cand_cap}, frontier_cap "
-          f"{h.frontier_cap}, cap growths {h.counts['cap_growths']}, "
-          f"density iterations {h.counts['density_iters']}, one gather "
+          f"{h.frontier_cap}, cap growths "
+          f"{sim.trace.counts.get('sph.cap_growths', 0)}, density "
+          f"iterations {sim.trace.counts['sph.density_iters']}, one gather "
           f"{blocks * h.cand_cap * 4 / 2 ** 20:.2f} MiB, {secs:.1f} s; "
           f"median density {float(sim.sph.density.median()):.5g}",
           flush=True)
