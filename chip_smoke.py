@@ -1639,12 +1639,17 @@ def pair_term_scales(fn, tgt, cand, per_target=()):
 
 def check_sph_passes(sim, card: str):
     """The density and hydro passes of GAS_SAMPLE_BLOCKS sampled target
-    blocks (all gas active) on the card and on the CPU from one tree and
-    state: candidate lists equal, each output within RTOL_TERMS of its
-    target's sum of |terms| (max_signal_vel, a maximum, within 1e-6
-    relative)."""
+    blocks (all gas active) from one tree and state: K2 on the card
+    against its twin on the card and on the CPU (candidate lists equal on
+    the card and the CPU, each output within RTOL_TERMS of its target's sum
+    of |terms|, max_signal_vel, a maximum, within 1e-6 relative), each
+    kernel's launch counted (`k2.density`, `k2.hydro`); then each kernel
+    timed over every block (`time_sph_kernels`), and one of its timed
+    outputs held to one of its twin's the same way.  Returns, a pass, the
+    timing's numbers and the largest |K2 - twin| of the pass's checks."""
     from ngravs_tpu_torch.ops import sph as S
     from ngravs_tpu_torch.ops.tree import Octree
+    from ngravs_tpu_torch.trace import Trace
     hs, cfg, depth = sim.hydro, sim.cfg, sim.solver.depth
     tree = sim._sph_tree()
     p = all_active(sim)
@@ -1661,16 +1666,18 @@ def check_sph_passes(sim, card: str):
     box = cfg.box_sizes
     worst = {}
 
-    def gather(pairs, radius):
+    def gather(pairs, radius, tg=tgt, cpu=True):
         while True:
             g = S.make_sph_gather(depth, cfg.tree_bucket_size, hs.cand_cap,
                                   box_size=box, group_size=hs.group,
                                   pairs=pairs)
-            on_card = g(tree, tgt, radius)
+            on_card = g(tree, tg, radius)
             if not bool(on_card.overflow):
                 break
             hs.cand_cap *= 2
-        on_cpu = g(cpu_tree, tgt.cpu(), radius.cpu())
+        if not cpu:
+            return on_card
+        on_cpu = g(cpu_tree, tg.cpu(), radius.cpu())
         for name in ("cand", "n_cand", "overflow", "max_cand"):
             if not torch.equal(getattr(on_card, name).cpu(),
                                getattr(on_cpu, name)):
@@ -1680,43 +1687,197 @@ def check_sph_passes(sim, card: str):
 
     def compare(label, got, want, scales, maxed=()):
         for i, (g, w, sc) in enumerate(zip(got, want, scales)):
-            err = (g.cpu() - w).abs()
+            err = (g.cpu() - w.cpu()).abs()
             if i in maxed:
-                bad = err > 1e-6 * w.abs()
+                bad = ~(err <= 1e-6 * w.cpu().abs())
             else:
-                bad = err > RTOL_TERMS * sc.cpu() + 1e-30
+                bad = ~(err <= RTOL_TERMS * sc.cpu() + 1e-30)
             if bool(bad.any()):
-                raise AssertionError(f"{label} output {i}: card vs CPU off "
-                                     f"by {float(err.max())}")
-            worst[f"{label}[{i}]"] = float(err.max())
+                raise AssertionError(f"{label} output {i} off by "
+                                     f"{float(err.max())}")
+            key = f"{label}[{i}]"
+            worst[key] = max(worst.get(key, 0.0), float(err.max()))
 
+    def compare_all(label, fn, tg, cands, per_target, got, want, maxed=()):
+        """`compare` over every block, the term scales in chunks of
+        GAS_SAMPLE_BLOCKS blocks."""
+        for b0 in range(0, tg.shape[0], GAS_SAMPLE_BLOCKS):
+            sl = slice(b0, b0 + GAS_SAMPLE_BLOCKS)
+            compare(label, [g[sl] for g in got], [w[sl] for w in want],
+                    pair_term_scales(fn, tg[sl], cands.cand[sl],
+                                     tuple(a[sl] for a in per_target)),
+                    maxed)
+
+    trace = Trace()
     cd, cc = gather(False, hsml_t)
-    dens = lambda tr, vel: lambda tg, c, h, v: S.density_pass(
+    dens = lambda fn, tr, vel: lambda tg, c, h, v: fn(
         tr, tg, h, v, c, vel, box_size=box)
-    got = dens(tree, vel_all)(tgt, cd, hsml_t, vel_all[safe])
-    want = dens(cpu_tree, vel_all.cpu())(tgt.cpu(), cc, hsml_t.cpu(),
-                                         vel_all[safe].cpu())
-    compare("density", got, want, pair_term_scales(
-        dens(tree, vel_all), tgt, cd.cand, (hsml_t, vel_all[safe])))
+    with trace.span("check"):
+        got = dens(S.density_pass, tree, vel_all)(tgt, cd, hsml_t,
+                                                  vel_all[safe])
+    twin = dens(S.density_pass_torch, tree, vel_all)
+    scales = pair_term_scales(twin, tgt, cd.cand, (hsml_t, vel_all[safe]))
+    compare("density K2 vs card twin", got,
+            twin(tgt, cd, hsml_t, vel_all[safe]), scales)
+    compare("density K2 vs CPU twin", got, dens(
+        S.density_pass_torch, cpu_tree, vel_all.cpu())(
+            tgt.cpu(), cc, hsml_t.cpu(), vel_all[safe].cpu()), scales)
 
     fields, facs = hs.hydro_inputs(tree, p, sim.sph, float(sim.tbi),
                                    sim.time)
     hd, hc = gather(True, fields[0][safe])
-    hyd = lambda tr, fl: lambda tg, c: S.hydro_pass(
+    hyd = lambda fn, tr, fl: lambda tg, c: fn(
         tr, tg, c, *fl, *facs, cfg.art_bulk_visc_const, box_size=box,
         use_limiter=not cfg.no_viscosity_limiter)
-    got = hyd(tree, fields)(tgt, hd)
-    want = hyd(cpu_tree, [f.cpu() for f in fields])(tgt.cpu(), hc)
-    compare("hydro", got, want, pair_term_scales(hyd(tree, fields), tgt,
-                                                 hd.cand), maxed=(2,))
+    with trace.span("check"):
+        got = hyd(S.hydro_pass, tree, fields)(tgt, hd)
+    twin = hyd(S.hydro_pass_torch, tree, fields)
+    scales = pair_term_scales(twin, tgt, hd.cand)
+    compare("hydro K2 vs card twin", got, twin(tgt, hd), scales,
+            maxed=(2,))
+    compare("hydro K2 vs CPU twin", got, hyd(
+        S.hydro_pass_torch, cpu_tree, [f.cpu() for f in fields])(
+            tgt.cpu(), hc), scales, maxed=(2,))
+    if trace.prefixed("k2.") != {"density": 1, "hydro": 1}:
+        raise AssertionError(f"the SPH passes on the card did not launch K2 "
+                             f"once each: {trace.prefixed('k2.')}")
     print(f"SPH passes [{card}]: {GAS_SAMPLE_BLOCKS} sampled blocks of "
           f"{hs.group} targets, S = {cd.cand.shape[1]} (density, "
           f"{int(cd.max_cand)} max) and {hd.cand.shape[1]} (hydro, "
           f"{int(hd.max_cand)} max): candidate lists equal on the card and "
-          f"the CPU; max |card - CPU| "
+          f"the CPU; K2 launches {trace.prefixed('k2.')}; max |K2 - twin| "
           + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
           + f", each within {RTOL_TERMS:g} of its sum of |terms|",
           flush=True)
+
+    radius = torch.where(tgt_all >= 0, sim.sph.hsml[order][
+        tgt_all.clamp(min=0).long()], 0.0)
+    cands = gather(False, radius, tgt_all, cpu=False)
+    safe_all = tgt_all.clamp(min=0).long()
+    per_target = (radius, vel_all[safe_all])
+    timed = {}
+    timed["density"], got, want = time_sph_kernels(
+        "density", card, tree, tgt_all, cands, box,
+        lambda fn: dens(fn, tree, vel_all), per_target, fields[0])
+    compare_all("density K2 vs card twin, every block",
+                dens(S.density_pass_torch, tree, vel_all), tgt_all, cands,
+                per_target, got, want)
+    cands = gather(True, fields[0][safe_all], tgt_all, cpu=False)
+    timed["hydro"], got, want = time_sph_kernels(
+        "hydro", card, tree, tgt_all, cands, box,
+        lambda fn: hyd(fn, tree, fields), (), fields[0])
+    compare_all("hydro K2 vs card twin, every block",
+                hyd(S.hydro_pass_torch, tree, fields), tgt_all, cands, (),
+                got, want, maxed=(2,))
+    every = {k: v for k, v in worst.items() if "every block" in k}
+    print(f"SPH passes [{card}], every block: {tgt_all.shape[0]} blocks; "
+          "max |K2 - twin| " + ", ".join(f"{k} {v:.3g}"
+                                         for k, v in every.items())
+          + f", each within {RTOL_TERMS:g} of its sum of |terms|",
+          flush=True)
+    return {name: dict(nums, max_abs_err=max(
+        v for k, v in worst.items() if k.startswith(name)))
+        for name, nums in timed.items()}
+
+
+# the fewest operations (each add, multiply, divide, sqrt, rint, min, max
+# and compare one) K2's passes take, counted from csrc/sph.cu: a candidate
+# of a target (displacement, r^2, the cut; PERIODIC the three minimum-image
+# tests), a pair inside the kernel (density: sqrt, u, W and dW, the five
+# sums; hydro: sqrt, both dW, the signal velocity, the viscosity with its
+# limiter, the force and entropy sums); and the bytes of each particle's
+# fields and each output row, read or written once
+OPS_SPH_SLOT = {"density": 9, "hydro": 11}
+OPS_SPH_PERIODIC = 3
+OPS_SPH_PAIR = {"density": 48, "hydro": 70}
+BYTES_SPH_PARTICLE = {"density": 28, "hydro": 60}
+BYTES_SPH_TARGET = {"density": 4 + 16 + 12 + 28, "hydro": 4 + 20}
+# K2's launches timed, and the twin's
+K2_REPS, K2_TWIN_REPS = 5, 1
+
+
+def sph_pair_counts(tree, tgt, cands, box, hsml_all, pairs: bool):
+    """(candidate slots of valid targets, pairs inside the kernel) of one
+    pass over every block: density r < h_i, hydro r < h_i or r < h_j (not
+    self), as r^2 against h^2, in chunks of blocks."""
+    slots = inside = 0
+    nb, s = cands.cand.shape
+    step = max(1, (1 << 26) // (tgt.shape[1] * s))
+    for b0 in range(0, nb, step):
+        t = tgt[b0:b0 + step]
+        c = cands.cand[b0:b0 + step]
+        live = (t >= 0)[:, :, None] & (c >= 0)[:, None, :]
+        tp = tree.pos_s[t.clamp(min=0).long()]
+        cp = tree.pos_s[c.clamp(min=0).long()]
+        d = tp[:, :, None, :] - cp[:, None, :, :]
+        for a, b in enumerate(box):
+            if b > 0:
+                d[..., a] -= b * torch.round(d[..., a] / b)
+        r2 = (d * d).sum(-1)
+        h_i = hsml_all[t.clamp(min=0).long()][:, :, None]
+        near = r2 < h_i * h_i
+        if pairs:
+            h_j = hsml_all[c.clamp(min=0).long()][:, None, :]
+            near = (near | (r2 < h_j * h_j)) & (t[:, :, None] != c[:, None, :])
+        slots += int(live.sum())
+        inside += int((near & live).sum())
+    return slots, inside
+
+
+def time_sph_kernels(name: str, card: str, tree, tgt, cands, box, pass_,
+                     per_target, hsml_all):
+    """One pass over every block of the gas (the cell's shapes): K2's time
+    (median of K2_REPS launches, CUDA events) against its twin's on the
+    card and against its bound, max(operations / PEAK_FP32, bytes /
+    PEAK_BYTES), with the mean n_cand / S.  `pass_(fn)` is the pass through
+    `fn`, taking (targets, candidates, *per_target).  Returns the numbers
+    of the pass's kernel entry, and the last timed outputs of K2 and of its
+    twin."""
+    from ngravs_tpu_torch.ops import sph as S
+    nb, s = cands.cand.shape
+    kernel = S.density_pass if name == "density" else S.hydro_pass
+    twin = S.density_pass_torch if name == "density" else S.hydro_pass_torch
+    outs = {}
+
+    def run(fn):
+        outs[fn] = pass_(fn)(tgt, cands, *per_target)
+    ms = cuda_ms(lambda: run(kernel), K2_REPS)
+    twin_ms = cuda_ms(lambda: run(twin), K2_TWIN_REPS)
+    slots, inside = sph_pair_counts(tree, tgt, cands, box, hsml_all,
+                                    name == "hydro")
+    periodic = sum(1 for b in box if b > 0) > 0
+    ops = slots * (OPS_SPH_SLOT[name] + OPS_SPH_PERIODIC * periodic) \
+        + inside * OPS_SPH_PAIR[name]
+    n_targets = int((tgt >= 0).sum())
+    nbytes = tree.mass_s.shape[0] * BYTES_SPH_PARTICLE[name] \
+        + 4 * int(cands.n_cand.sum()) + n_targets * BYTES_SPH_TARGET[name]
+    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound = max(t_ops, t_bytes)
+    fill = float(cands.n_cand.float().mean()) / s
+    print(f"K2 {name} [{card}]: {nb} blocks of {tgt.shape[1]} targets "
+          f"({n_targets} live), S = {s}, mean n_cand / S = {fill:.3f}, "
+          f"{slots} candidate slots, {inside} pairs inside; kernel "
+          f"{ms:.3f} ms (median of {K2_REPS}), twin {twin_ms:.1f} ms, bound "
+          f"{bound:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}"
+          f"), {100 * bound / ms:.2f}% of it; twin / kernel "
+          f"{twin_ms / ms:.0f}x", flush=True)
+    nums = {"ms": ms, "plain_ms": twin_ms, "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "plan": {"lanes": S.launch_lanes(tgt.shape[1]), "fill": fill}}
+    return nums, outs[kernel], outs[twin]
+
+
+def sph_entry(name: str, launches: int, nums: dict) -> dict:
+    """K2's entry for the {"kernels": ...} line: the gas path's launches of
+    the pass, and `check_sph_passes`' numbers for it."""
+    return {"name": f"K2 {name} (gas path, all gas blocks)", "route": "cuda",
+            "source": "ngravs_tpu_torch/csrc/sph.cu",
+            "replaces": f"ngravs_tpu/ops/sph.py {name}_pass (no Pallas "
+                        "kernel)",
+            "launches": launches, "max_abs_err": nums["max_abs_err"],
+            "ms": nums["ms"], "plain_ms": nums["plain_ms"],
+            "bound_ms": nums["bound_ms"], "bound_by": nums["bound_by"],
+            "library_ms": None, "plan": nums["plan"]}
 
 
 def profile_gas_step(sim, card: str, launched):
@@ -1811,8 +1972,8 @@ def check_gas_state(sim, card: str, label: str = "gas state"):
 
 
 def gas_path(dev, card: str):
-    """Slice 3's path; its K1 launch count and the inputs of every K1
-    launch of its profiled force computation."""
+    """Slice 3's path; its K1 launch count, the inputs of every K1 launch
+    of its profiled force computation, and K2's kernel entries."""
     from ngravs_tpu_torch.config import read_parameter_file
     from ngravs_tpu_torch.integrate.runner import Simulation
     from ngravs_tpu_torch.ops import pairwise
@@ -1834,6 +1995,7 @@ def gas_path(dev, card: str):
     first_path = os.path.join(run_dir, "first_step.npz")
     syncs = []
     k1_before = pairwise.instance_counts(sim.trace)
+    sph_before = dict(sim.trace.counts)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for k in range(GAS_STEPS):
@@ -1863,10 +2025,17 @@ def gas_path(dev, card: str):
                              f"multi-law K1 instance: {counts}")
     SINGLE["gas"] = dict(rate=sim.num_force_updates / wall, syncs=syncs,
                          h0=h0, first=first_path)
+    k2, sph_counts = ({k[len(pre):]: v - sph_before.get(k, 0)
+                       for k, v in sim.trace.counts.items()
+                       if k.startswith(pre)} for pre in ("k2.", "sph."))
+    if k2.get("density", 0) != sph_counts.get("density_iters") \
+            or k2.get("hydro", 0) != sph_counts.get("hydro_passes"):
+        raise AssertionError(f"the gas path's SPH passes did not all go "
+                             f"through K2: {k2} against {sph_counts}")
     print(f"gas path [{card}]: {GAS_STEPS} steps to a={sim.time:.6g}, "
           f"{sim.num_force_updates} particle-steps in {wall:.2f} s = "
           f"{sim.num_force_updates / wall:.1f} particle-steps/s, K1 "
-          f"launches {counts}, SPH passes {sim.trace.prefixed('sph.')}, "
+          f"launches {counts}, SPH passes {sph_counts}, K2 launches {k2}, "
           f"PM window "
           f"({sim.pm_ti_begstep}, {sim.pm_ti_endstep}); host seconds by "
           "phase: " + ", ".join(f"{k} {v:.2f}"
@@ -1874,7 +2043,8 @@ def gas_path(dev, card: str):
           flush=True)
 
     check_gas_state(sim, card)
-    check_sph_passes(sim, card)
+    sph_entries = [sph_entry(name, k2.get(name, 0), nums)
+                   for name, nums in check_sph_passes(sim, card).items()]
 
     # restart files: save after the steps, resume into a fresh Simulation
     t0 = time.perf_counter()
@@ -1898,7 +2068,7 @@ def gas_path(dev, card: str):
     launched = []
     profile_gas_step(sim, card, launched)
     sim.close()
-    return launches, launched
+    return launches, launched, sph_entries
 
 
 # --------------------------------------------------------------------------
@@ -3857,7 +4027,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     want = lambda k: only is None or k in only
-    from ngravs_tpu_torch.ops import lattice, pairwise
+    from ngravs_tpu_torch.ops import lattice, pairwise, sph
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -3877,7 +4047,10 @@ def main(argv=None) -> int:
         tables = threading.Thread(target=prebuild_lattice_tables)
         tables.start()
     pairwise.build_library(verbose=True)
-    print(f"build: pair kernel {time.perf_counter() - t1:.1f} s; "
+    t2 = time.perf_counter()
+    sph.build_library(verbose=True)
+    print(f"build: pair kernel {t2 - t1:.1f} s, SPH kernels "
+          f"{time.perf_counter() - t2:.1f} s; "
           f"lattice-table generator "
           f"{'native' if native else 'numpy (no host compiler)'} "
           f"{t1 - t0:.1f} s", flush=True)
@@ -3925,13 +4098,14 @@ def main(argv=None) -> int:
             + launches2
         stamp("slice 2 (box path, reproducibility)")
     if want(6):
-        launches3, launched = gas_path(dev, card)
+        launches3, launched, sph_entries = gas_path(dev, card)
         batch = check_largest_launch("kernel (gas-path batch)", launched)
         entries.append(kernel_entry(
             f"{batch['name']} (gas path, newton_yukawa periodic TreePM + "
             "SPH)", launches3, batch, [batch["max_abs_err"]]))
         path_counts[batch["name"]] = path_counts.get(batch["name"], 0) \
             + launches3
+        entries += sph_entries
         stamp("slice 3 (gas)")
     if want(7):
         launches4, launched, ewald_err = ewald_path(dev, card)

@@ -125,28 +125,34 @@ def launch_plan(group: int, s_cap: int, flags: int) -> LaunchPlan:
                       -(-group * lanes // 32) * 32, smem)
 
 
-def _nvcc() -> str:
+def _nvcc(src: str) -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the pair kernel is built from "
-                       f"{_CSRC} with the CUDA toolkit")
+    raise RuntimeError(f"nvcc not found: the kernels of {src} are built "
+                       "with the CUDA toolkit")
 
 
-def build_library(verbose: bool = False, src: str = _CSRC) -> str:
-    """Compile a K1 source (`csrc/pairwise.cu` unless `src` names another)
-    into `build/` unless a library built from the same source (by content
+def build_library(verbose: bool = False, src: str = _CSRC,
+                  flags: tuple = ()) -> str:
+    """Compile a CUDA source with a plain C interface (K1's
+    `csrc/pairwise.cu` unless `src` names another), with nvcc's `flags`
+    after the common ones, into `build/libngravs_<source name>_<hash>.so`
+    unless a library built from the same source and flags (by content
     hash) is there.  Returns its path."""
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    out = os.path.join(_BUILD_DIR, f"libngravs_pairwise_{digest}.so")
+        h = hashlib.sha256(f.read())
+    h.update(" ".join(flags).encode())
+    name = os.path.splitext(os.path.basename(src))[0]
+    out = os.path.join(_BUILD_DIR,
+                       f"libngravs_{name}_{h.hexdigest()[:16]}.so")
     if os.path.exists(out):
         return out
     os.makedirs(_BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *_NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose else []) \
-        + ["-o", tmp, src]
+    cmd = [_nvcc(src), *_NVCC_FLAGS, *flags] \
+        + (["-Xptxas", "-v"] if verbose else []) + ["-o", tmp, src]
     try:
         r = subprocess.run(cmd, capture_output=True, text=True)
         if r.returncode != 0:

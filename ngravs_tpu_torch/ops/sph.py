@@ -24,15 +24,25 @@ hydra.c, ngb.c).
    viscosity limiter and signal-velocity tracking.
 
 Under `jax.jit` XLA fuses the dense [blocks, G, S] intermediates of the two
-passes; eager torch materialises each of them, so both passes (and the
-gather) run over chunks of target blocks whose working set stays under a
-byte budget.  Every sum runs along S inside one block, so the chunking
-changes no result; the host reads nothing inside a chunk loop.
+passes.  In the port `density_pass` and `hydro_pass` take CUDA tensors to
+K2, two hand-written kernels (`csrc/sph.cu`: one CTA a target block, which
+loops over its own candidates and keeps its sums in registers), built with
+nvcc for sm_90a at first use into `build/` and loaded through ctypes as
+K1 is; each launch counts `k2.density` / `k2.hydro` in the trace of the
+innermost open span.  CPU tensors take the plain twins
+(`density_pass_torch`, `hydro_pass_torch`), which materialise the
+intermediates and so run over chunks of target blocks whose working set
+stays under a byte budget; every sum runs along S inside one block, so
+the chunking changes no result.  There is no fallback from one to the
+other.  The gather runs in chunks on either device; the host reads
+nothing inside a chunk loop.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
+import os
 from typing import NamedTuple
 
 import torch
@@ -40,6 +50,8 @@ import torch
 from ..constants import (KERNEL_COEFF_1, KERNEL_COEFF_2, KERNEL_COEFF_3,
                          KERNEL_COEFF_4, KERNEL_COEFF_5, KERNEL_COEFF_6)
 from ..trace import Trace, blocking
+from ..trace import current as current_trace
+from . import pairwise
 from .tree import Octree, _append_rows, _compact_rows
 
 NORM_COEFF = 4.0 / 3 * math.pi   # allvars.h NORM_COEFF (volume of unit ball)
@@ -281,12 +293,26 @@ def _density_blocks(tree: Octree, tgt_sorted, hsml, vel_pred_t, cand,
 
 def density_pass(tree: Octree, tgt_sorted, hsml, vel_pred_t,
                  cands: SphCandidates, vel_pred_all, box_size=0.0,
-                 kernel: Kernel = K3D, block_chunk: int | None = None):
+                 kernel: Kernel = K3D):
     """Density sums for gas targets (density_evaluate, density.c:467-599).
 
     tgt_sorted [nb,G] sorted indices; hsml [nb,G]; vel_pred_t [nb,G,3];
     cands [nb,S] sorted candidate indices; vel_pred_all [N,3] in SORTED
-    order.  Returns (rho, wngb, dhsml, divv, rotv[3]) each [nb,G]."""
+    order.  Returns (rho, wngb, dhsml, divv, rotv[3]) each [nb,G].  CUDA
+    tensors launch K2's density kernel, CPU tensors take
+    `density_pass_torch`."""
+    if tgt_sorted.device.type == "cpu":
+        return density_pass_torch(tree, tgt_sorted, hsml, vel_pred_t, cands,
+                                  vel_pred_all, box_size, kernel)
+    return _density_cuda(tree, tgt_sorted, hsml, vel_pred_t, cands,
+                         vel_pred_all, box_size, kernel)
+
+
+def density_pass_torch(tree: Octree, tgt_sorted, hsml, vel_pred_t,
+                       cands: SphCandidates, vel_pred_all, box_size=0.0,
+                       kernel: Kernel = K3D, block_chunk: int | None = None):
+    """`density_pass`'s plain twin, on any device: `_density_blocks` over
+    chunks of target blocks."""
     nb, g = tgt_sorted.shape
     per_block = _DENSITY_TEMPS * g * cands.cand.shape[1] * 4
     parts = [_density_blocks(tree, tgt_sorted[sl], hsml[sl], vel_pred_t[sl],
@@ -430,13 +456,31 @@ def hydro_pass(tree: Octree, tgt_sorted, cands: SphCandidates,
                hsml_all, rho_all, pres_all, f_all, vel_all, csnd_all,
                divv_all, curl_all, dt_all, fac_mu, fac_vsic_fix, hubble_a2,
                visc_const, box_size=0.0, use_limiter: bool = True,
-               kernel: Kernel = K3D, block_chunk: int | None = None):
+               kernel: Kernel = K3D):
     """Hydro pair force (hydro_evaluate, hydra.c:353-555).
 
     All *_all arrays are in SORTED particle order (gathered by candidate
     index); per-target values are looked up through tgt_sorted.  The
     comoving factors are host floats.  Returns (acc [nb,G,3], dt_entropy
-    [nb,G], max_signal_vel [nb,G])."""
+    [nb,G], max_signal_vel [nb,G]).  CUDA tensors launch K2's hydro
+    kernel, CPU tensors take `hydro_pass_torch`."""
+    args = (tree, tgt_sorted, cands, hsml_all, rho_all, pres_all, f_all,
+            vel_all, csnd_all, divv_all, curl_all, dt_all, fac_mu,
+            fac_vsic_fix, hubble_a2, visc_const, box_size, use_limiter,
+            kernel)
+    if tgt_sorted.device.type == "cpu":
+        return hydro_pass_torch(*args)
+    return _hydro_cuda(*args)
+
+
+def hydro_pass_torch(tree: Octree, tgt_sorted, cands: SphCandidates,
+                     hsml_all, rho_all, pres_all, f_all, vel_all, csnd_all,
+                     divv_all, curl_all, dt_all, fac_mu, fac_vsic_fix,
+                     hubble_a2, visc_const, box_size=0.0,
+                     use_limiter: bool = True, kernel: Kernel = K3D,
+                     block_chunk: int | None = None):
+    """`hydro_pass`'s plain twin, on any device: `_hydro_blocks` over
+    chunks of target blocks."""
     nb, g = tgt_sorted.shape
     per_block = _HYDRO_TEMPS * g * cands.cand.shape[1] * 4
     parts = [_hydro_blocks(tree, tgt_sorted[sl], cands.cand[sl], hsml_all,
@@ -446,6 +490,188 @@ def hydro_pass(tree: Octree, tgt_sorted, cands: SphCandidates,
                            kernel)
              for sl in _chunks(nb, per_block, PASS_BYTES, block_chunk)]
     return tuple(torch.cat(xs) for xs in zip(*parts))
+
+
+# ---------------------------------------------------------------------------
+# K2: the two passes as CUDA kernels (csrc/sph.cu)
+# ---------------------------------------------------------------------------
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc", "sph.cu")
+# every product and sum rounded on its own, as the twins' torch operations
+_NVCC_FLAGS = ("-fmad=false",)
+# the kernels' limits: targets a block, threads a CTA, lanes a target
+MAX_GROUP, MAX_THREADS, MAX_LANES = 256, 256, 8
+_lib = None
+
+
+class _Spline(ctypes.Structure):
+    _fields_ = [(c, ctypes.c_float) for c in
+                ("c1", "c2", "c3", "c4", "c5", "c6", "zfac")] \
+        + [("ndims", ctypes.c_int)]
+
+
+class _HydroFactors(ctypes.Structure):
+    _fields_ = [("fac_mu", ctypes.c_float), ("hubble_a2", ctypes.c_float),
+                ("visc", ctypes.c_float), ("vsic", ctypes.c_float),
+                ("use_limiter", ctypes.c_int)]
+
+
+def build_library(verbose: bool = False) -> str:
+    """Build `csrc/sph.cu` as K1 is built (`pairwise.build_library`,
+    cached by content hash); returns the library's path."""
+    return pairwise.build_library(verbose, src=_CSRC, flags=_NVCC_FLAGS)
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build_library())
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.ngravs_sph_density.restype = i
+        lib.ngravs_sph_density.argtypes = (
+            [p] * 8 + [i] * 4 + [ctypes.POINTER(_Spline)] + [f] * 3
+            + [p, p])
+        lib.ngravs_sph_hydro.restype = i
+        lib.ngravs_sph_hydro.argtypes = (
+            [p] * 14 + [i] * 4 + [ctypes.POINTER(_Spline)] + [f] * 3
+            + [ctypes.POINTER(_HydroFactors), p, p])
+        _lib = lib
+    return _lib
+
+
+def launch_lanes(group: int) -> int:
+    """Threads a target in K2's CTA of one target block: the most, up to
+    8, that keep the CTA within 256 threads (4 for the blocks of 64 of a
+    tree group of 256).  Raises ValueError, before any launch, for a group
+    the kernels do not take."""
+    if not 0 < group <= MAX_GROUP:
+        raise ValueError(f"K2 takes blocks of 1 to {MAX_GROUP} targets, "
+                         f"not {group}")
+    lanes = MAX_LANES
+    while group * lanes > MAX_THREADS:
+        lanes //= 2
+    return lanes
+
+
+def spline_args(kernel: Kernel) -> _Spline:
+    """The `Kernel` tuple as K2 takes it: its six coefficients, zfac and
+    ndims (norm stays with the wrapper's finishing step)."""
+    return _Spline(kernel.c1, kernel.c2, kernel.c3, kernel.c4, kernel.c5,
+                   kernel.c6, kernel.zfac, kernel.ndims)
+
+
+def box_args(box_size) -> tuple:
+    """The per-axis periodic box as K2 takes it, 0 for an open axis."""
+    return _box3(box_size) or (0.0,) * 3
+
+
+def hydro_args(fac_mu, fac_vsic_fix, hubble_a2, visc_const,
+               use_limiter: bool) -> _HydroFactors:
+    """The hydro pass's host floats as K2 takes them: the twin's scalar
+    products 0.25 visc_const and 0.5 fac_vsic_fix in double precision,
+    each rounded to float32 once, as torch rounds a Python scalar."""
+    return _HydroFactors(fac_mu, hubble_a2, 0.25 * visc_const,
+                         0.5 * fac_vsic_fix, int(bool(use_limiter)))
+
+
+def _kernel_inputs(tensors: dict, dev):
+    """The tensors a K2 launch reads, made contiguous; raises ValueError on
+    a dtype, device or leading size the kernels do not take."""
+    out = {}
+    for name, (t, dtype, lead) in tensors.items():
+        if t.dtype != dtype or t.device != dev:
+            raise ValueError(f"K2: {name} must be {dtype} on {dev}, got "
+                             f"{t.dtype} on {t.device}")
+        if lead is not None and tuple(t.shape[:len(lead)]) != lead:
+            raise ValueError(f"K2: {name} must be {list(lead)} + ..., got "
+                             f"{list(t.shape)}")
+        out[name] = t.contiguous()
+    return out
+
+
+def _cand_inputs(tgt_sorted, cands: SphCandidates, tree: Octree):
+    """The inputs both kernels read; raises ValueError off the card."""
+    if cands.n_cand is None or cands.cand.dim() != 2:
+        raise ValueError("K2 reads [nb, S] candidates and their counts "
+                         "n_cand")
+    if tgt_sorted.device.type != "cuda":
+        raise ValueError(f"no SPH kernel for device {tgt_sorted.device}")
+    nb, g = tgt_sorted.shape
+    i32, f32 = torch.int32, torch.float32
+    n = tree.mass_s.shape[0]
+    return dict(tgt=(tgt_sorted, i32, (nb, g)),
+                cand=(cands.cand, i32, (nb,)),
+                n_cand=(cands.n_cand, i32, (nb,)),
+                pos=(tree.pos_s, f32, (n, 3)), mass=(tree.mass_s, f32, (n,)))
+
+
+def _launch(fn, name: str, *args):
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"K2 {name} launch failed: cudaError {err}")
+    tr = current_trace()
+    if tr is not None:
+        tr.count("k2." + name)
+
+
+def _density_cuda(tree: Octree, tgt_sorted, hsml, vel_pred_t,
+                  cands: SphCandidates, vel_pred_all, box_size,
+                  kernel: Kernel):
+    dev = tgt_sorted.device
+    nb, g = tgt_sorted.shape
+    n = tree.mass_s.shape[0]
+    f32 = torch.float32
+    x = _kernel_inputs(dict(
+        _cand_inputs(tgt_sorted, cands, tree),
+        vel=(vel_pred_all, f32, (n, 3)), hsml=(hsml, f32, (nb, g)),
+        vel_t=(vel_pred_t, f32, (nb, g, 3))), dev)
+    lanes = launch_lanes(g)
+    out = torch.empty(nb, g, 7, dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        _launch(_library().ngravs_sph_density, "density",
+                x["pos"].data_ptr(), x["mass"].data_ptr(),
+                x["vel"].data_ptr(), x["tgt"].data_ptr(),
+                x["hsml"].data_ptr(), x["vel_t"].data_ptr(),
+                x["cand"].data_ptr(), x["n_cand"].data_ptr(), nb, g,
+                x["cand"].shape[1], lanes, ctypes.byref(spline_args(kernel)),
+                *box_args(box_size), out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    # the twin's finishing step (weighted ngb = norm * sum W / hinv^3)
+    hinv = 1.0 / torch.clamp(hsml, min=1e-30)
+    hinv3_t, _ = _hinv_pow(hinv, kernel)
+    wngb = kernel.norm * out[..., 1] / torch.clamp(hinv3_t, min=1e-37)
+    return out[..., 0], wngb, out[..., 2], out[..., 3], out[..., 4:7]
+
+
+def _hydro_cuda(tree: Octree, tgt_sorted, cands: SphCandidates, hsml_all,
+                rho_all, pres_all, f_all, vel_all, csnd_all, divv_all,
+                curl_all, dt_all, fac_mu, fac_vsic_fix, hubble_a2,
+                visc_const, box_size, use_limiter: bool, kernel: Kernel):
+    dev = tgt_sorted.device
+    nb, g = tgt_sorted.shape
+    n = tree.mass_s.shape[0]
+    f32 = torch.float32
+    fields = dict(hsml=hsml_all, rho=rho_all, pres=pres_all, fdh=f_all,
+                  vel=vel_all, csnd=csnd_all, divv=divv_all, curl=curl_all,
+                  dt=dt_all)
+    x = _kernel_inputs(dict(
+        _cand_inputs(tgt_sorted, cands, tree),
+        **{k: (v, f32, (n, 3) if k == "vel" else (n,))
+           for k, v in fields.items()}), dev)
+    lanes = launch_lanes(g)
+    out = torch.empty(nb, g, 5, dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        _launch(_library().ngravs_sph_hydro, "hydro",
+                x["pos"].data_ptr(), x["mass"].data_ptr(),
+                *(x[k].data_ptr() for k in fields), x["tgt"].data_ptr(),
+                x["cand"].data_ptr(), x["n_cand"].data_ptr(), nb, g,
+                x["cand"].shape[1], lanes, ctypes.byref(spline_args(kernel)),
+                *box_args(box_size),
+                ctypes.byref(hydro_args(fac_mu, fac_vsic_fix, hubble_a2,
+                                        visc_const, use_limiter)),
+                out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    return out[..., 0:3], out[..., 3], out[..., 4]
 
 
 # ---------------------------------------------------------------------------

@@ -280,8 +280,8 @@ def _density_case(periodic):
     vel_all = T(fl["vel_all"])
 
     def run(tg, cands, h, v, block_chunk=None):
-        return tsph.density_pass(t, tg, h, v, cands, vel_all, box_size=box,
-                                 block_chunk=block_chunk)
+        return tsph.density_pass_torch(t, tg, h, v, cands, vel_all,
+                                       box_size=box, block_chunk=block_chunk)
 
     terms = _density_pair_terms(t, T(tgt), tc.cand, T(hsml), T(vpt),
                                 vel_all, box)
@@ -337,9 +337,9 @@ def test_hydro_pass_matches(limiter, comoving, periodic, monkeypatch):
     fields = [T(fl[k]) for k in fl]
 
     def run(tg, cands, block_chunk=None):
-        return tsph.hydro_pass(t, tg, cands, *fields, *facs, 0.8,
-                               box_size=box, use_limiter=limiter,
-                               block_chunk=block_chunk)
+        return tsph.hydro_pass_torch(t, tg, cands, *fields, *facs, 0.8,
+                                     box_size=box, use_limiter=limiter,
+                                     block_chunk=block_chunk)
 
     got = run(T(tgt), tc)
     # the terms of a pair's force: the kernel gradient's monomials
