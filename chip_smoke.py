@@ -77,14 +77,16 @@ Phases (any failure raises and exits non-zero):
     softening and newton_yukawa wiring without PMGRID, the geometric
     opening criterion (theta 0.5), `run(max_steps=EWALD_STEPS)` with
     FORCETEST on 2,048 particles each step: K1 (the periodic multi-law instance, K1bc)
-    must run beside the lattice pass; every step's FORCETEST rms relative
-    error < 0.25 (the reference walk's error on this near-uniform IC; see
-    RMS_EWALD), momentum rate < 1e-3; every K1 launch of a fresh
-    solver's settling pass, the walk attempts that overflowed included,
-    within 1e-5 of its sum of |terms| of the twin; the pass for the
-    targets of a sixteenth of the box profiled (the
-    `lattice_pass` range's share of device time); K1 against the twin on
-    its largest launch;
+    must run beside the lattice pass, K3 once a walk batch; every step's
+    FORCETEST rms relative error < 0.25 (the reference walk's error on
+    this near-uniform IC; see RMS_EWALD), momentum rate < 1e-3; every K1
+    launch of a fresh solver's settling pass, the walk attempts that
+    overflowed included, within 1e-5 of its sum of |terms| of the twin,
+    and every K3 launch of it as the walk received it and launched again
+    with the potential off and on (`K3 [...]` times its largest against
+    the twin); the pass for the targets of a sixteenth of the box
+    profiled (K3's share of device time); K1
+    against the twin on its largest launch;
  8. slice 4b, the TreePM box with the tabulated transition: slice 2's box
     with the yukawa preset (a NoneLaw diagonal, so no closed form: every
     pair takes the tabulated evaluation and K1 is not launched), PMGRID
@@ -392,6 +394,8 @@ PHASE14 = {"entries": [], "counts": {}, "seconds": 0.0}
 SINGLE = {}
 # the K1 launches of overflowing walk attempts held to the twin so far
 OVERFLOW_CHECKED = {"launches": 0}
+# K3's entries (slice 4a, phase 13c)
+K3_ENTRIES = []
 
 
 def stamp(what: str):
@@ -809,10 +813,12 @@ def timed_passes(sim, solver, card: str, label: str):
 
 
 def profile_pass(sim, solver, card: str, label: str, with_pm: bool = False,
-                 ranges=(), slab: float = 1.0):
+                 slab: float = 1.0):
     """Where a force pass's time goes: one full pass (and, `with_pm`, the
     PM forces) under torch.profiler: CUDA kernel count and device time,
-    K1's share, and the device time under each named range of `ranges`.
+    K1's share and, where the pass launched it, K3's (by kernel name: the
+    profiler charged K3's launch through ctypes nothing of its device
+    time to the `ngravs.walk.lattice` range around it).
     `slab` < 1 makes the targets only the particles with x below that
     fraction of the box (fewer blocks: the profiler's own processing of a
     300k-kernel pass takes minutes)."""
@@ -841,12 +847,13 @@ def profile_pass(sim, solver, card: str, label: str, with_pm: bool = False,
             if e.device_type == DeviceType.CUDA
             and not e.key.startswith(RANGE_PREFIX)]
     k1 = [e for e in kern if "pairwise_kernel" in e.key]
+    k3 = [e for e in kern if "lattice_kernel" in e.key]
     busy_ms = sum(dev_us(e) for e in kern) / 1e3
     k1_ms = sum(dev_us(e) for e in k1) / 1e3
-    shares = "".join(
-        f"; {k} " + (f"{v:.2f} ms ({v / busy_ms:.1%} of device time)"
-                     if v > 0 else "not measured (no device time under it)")
-        for k, v in ((k, range_ms(prof, k)) for k in ranges))
+    k3_ms = sum(dev_us(e) for e in k3) / 1e3
+    shares = (f"; K3 {sum(e.count for e in k3)} launches, {k3_ms:.2f} ms "
+              f"({k3_ms / max(busy_ms, 1e-9):.1%} of device time)"
+              if k3 else "")
     if busy_ms > 0:
         print(f"{label} [{card}]: {wall_ms:.1f} ms wall (profiler on), "
               f"{sum(e.count for e in kern)} CUDA kernels, device busy "
@@ -2132,20 +2139,178 @@ def ewald_path(dev, card: str, wiring: str = "newton_yukawa",
         raise AssertionError(f"{label}: momentum rate {mom}")
     stamp(f"{label} run")
 
-    launched, attempts = [], []
-    solver = pass_solver(sim, launched=launched, attempts=attempts)
+    k3 = sim.trace.counts.get("k3.lattice", 0)
+    if k3 != sim.trace.counts.get("walk.batches", 0) or k3 == 0:
+        raise AssertionError(f"{label}: {k3} K3 launches in "
+                             f"{sim.trace.counts.get('walk.batches', 0)} "
+                             "walk batches")
+    launched, attempts, lattice_launched = [], [], []
+    with record_lattice(lattice_launched):
+        solver = pass_solver(sim, launched=launched, attempts=attempts)
     stamp(f"{label}: the settling pass recorded")
     worst = check_every_launch(f"{label} settling pass", launched, attempts)
+    if len(lattice_launched) != len(launched):
+        raise AssertionError(f"{label}: {len(lattice_launched)} K3 launches "
+                             f"beside {len(launched)} of K1")
+    K3_ENTRIES.append(lattice_entry(label, k3, check_every_lattice_launch(
+        f"{label} settling pass", lattice_launched, attempts, card)))
+    del lattice_launched
     stamp(f"{label}: every launch against the twin")
     if profile:
         # the targets of a sixteenth of the box: the profiler's processing
         # of a whole pass (321k kernels) took about 200 s on the H100's host
         profile_pass(sim, solver, card, "profiled Ewald pass (x < box/16)",
-                     ranges=(RANGE_PREFIX + "walk.lattice",), slab=0.0625)
+                     slab=0.0625)
     potential_pass(sim, card, label, instance + "/pot",
                    {"periodic": RMS_POT_EWALD[wiring]})
     sim.close()
     return launches, settled_launches(launched, attempts), worst
+
+
+# K3, the lattice pass on the card (csrc/lattice.cu): the fewest
+# operations a valid pair takes without the potential (each add, multiply,
+# compare, absolute value and rounding one; portbench/lattice_roofline.py
+# holds the benchmark's frozen copy), and its timed repetitions
+OPS_LATTICE = 96
+K3_REPS, K3_TWIN_REPS = 5, 1
+
+
+class record_lattice:
+    """Within the block, every lattice pass the walk makes keeps its inputs
+    and its outputs in `launched`: (targets, sp, n_src, tables, n_gravs,
+    box, want_pot, acc, pot).  The walk launches K3 once a batch, beside
+    K1, so `record_attempts`' launch ranges index these too."""
+
+    def __init__(self, launched):
+        self.launched = launched
+
+    def __enter__(self):
+        from ngravs_tpu_torch.ops import walk as twalk
+        self.real = real = twalk.lattice_pass
+
+        def recording(targets, sp, n_src, tables, n_gravs, box, want_pot=True,
+                      corners=None):
+            acc, pot = real(targets, sp, n_src, tables, n_gravs, box,
+                            want_pot, corners=corners)
+            self.launched.append((targets, sp, n_src, tables, n_gravs, box,
+                                  want_pot, acc, pot))
+            return acc, pot
+        twalk.lattice_pass = recording
+        return self
+
+    def __exit__(self, *exc):
+        from ngravs_tpu_torch.ops import walk as twalk
+        twalk.lattice_pass = self.real
+        return False
+
+
+def lattice_terms(targets, sp, n_src, tables, n_gravs: int, box: float):
+    """The twin's sums (acc [B*G, 3], pot [B*G]) of one lattice pass and,
+    per target, its valid pairs and the sums of |term| of the three force
+    components and the potential ([B*G, 4]), on the tensors' device."""
+    from ngravs_tpu_torch.ops import lattice as tlat
+    from ngravs_tpu_torch.ops import walk as twalk
+    from ngravs_tpu_torch.ops.pairwise import FMASS, IGRAV
+    nb, _, s = sp.shape
+    g = targets["x"].shape[0] // nb
+    corners = tlat.corner_table(tables)
+    acc, pot = twalk.lattice_pass_torch(targets, sp, n_src, tables, n_gravs,
+                                        box, True, corners=corners)
+    scale = torch.zeros(nb, g, 4, device=sp.device)
+    pairs = torch.zeros(nb, g, dtype=torch.int64, device=sp.device)
+    fac_intp = 2 * (tables.shape[1] - 1) / box
+    for sl in twalk._block_chunks(nb, s, g, None):
+        spc = sp[sl]
+        col, valid, d = twalk._pair_geometry(targets, spc, sl, n_src, g, box)
+        pidx = col("grav") * n_gravs \
+            + spc[:, IGRAV, :].view(torch.int32)[:, None, :]
+        fc = tlat.lattice_correction(tables, fac_intp, *d, pidx, corners)
+        sm = spc[:, None, FMASS, :]
+        scale[sl] = torch.stack([torch.where(valid, (sm * f).abs(), 0.0)
+                                 .sum(-1) for f in fc], dim=-1)
+        pairs[sl] = valid.sum(-1)
+    return acc, pot, scale.reshape(nb * g, 4), pairs.reshape(nb * g)
+
+
+def check_every_lattice_launch(label: str, launched, attempts=None,
+                               card: str = "") -> dict:
+    """Each recorded K3 launch (`record_lattice`) against the twin on its
+    own inputs: its output as the walk received it, and K3 launched again
+    with the potential on and off, each component within RTOL_TERMS of its
+    target's sum of |terms|.  `attempts` (`record_attempts`, whose launch
+    ranges index K3's launches too) counts those of attempts that
+    overflowed.  Then the largest launch timed, K3 against the twin.
+    Raises on a launch that disagrees; returns the largest's numbers."""
+    from ngravs_tpu_torch.ops import walk as twalk
+    from ngravs_tpu_torch.ops.lattice import k3_lanes, lattice_eval_cuda
+    worst, pairs_of = 0.0, []
+    for i, (targets, sp, n_src, tables, ng, box, want_pot, acc, pot) \
+            in enumerate(launched):
+        t_acc, t_pot, scale, pairs = lattice_terms(targets, sp, n_src,
+                                                   tables, ng, box)
+        pairs_of.append(int(pairs.sum()))
+        outs = [(f"the walk's (potential {'on' if want_pot else 'off'})",
+                 acc, pot if want_pot else None)]
+        for on in (False, True):
+            a2, p2 = lattice_eval_cuda(targets, sp, n_src, tables, ng, box,
+                                       on)
+            outs.append((f"again (potential {'on' if on else 'off'})", a2,
+                         p2 if on else None))
+        tol = RTOL_TERMS * scale + 1e-30
+        for what, a, p in outs:
+            d = (a - t_acc).abs()
+            bad = d > tol[:, :3]
+            if p is not None:
+                bad = torch.cat([bad, ((p - t_pot).abs() > tol[:, 3])[:, None]],
+                                dim=1)
+            if bool(bad.any()):
+                rows = torch.nonzero(bad.any(dim=1)).squeeze(1)[:5].tolist()
+                pots = "" if p is None else (
+                    f"; potential kernel {p[rows].tolist()}, twin "
+                    f"{t_pot[rows].tolist()}")
+                raise AssertionError(
+                    f"{label}: K3 launch {i} ({what}) disagrees with the twin "
+                    f"on targets {rows}: kernel {a[rows].tolist()}, twin "
+                    f"{t_acc[rows].tolist()}{pots}; sums of |terms| "
+                    f"{scale[rows].tolist()}")
+            worst = max(worst, float(d.max()) if d.numel() else 0.0)
+    ovf = overflowing(attempts or ())
+    print(f"{label}: all {len(launched)} K3 launches ({ovf} of them from walk "
+          f"attempts that overflowed), potential off and on, within "
+          f"{RTOL_TERMS:g} of their sums of |terms| of the twin; "
+          f"{sum(pairs_of)} valid pairs; max|dacc| {worst:.3g}", flush=True)
+    # the largest launch timed: K3 against the twin, in turns
+    big = max(range(len(launched)), key=pairs_of.__getitem__)
+    targets, sp, n_src, tables, ng, box = launched[big][:6]
+    pairs = pairs_of[big]
+    ms = cuda_ms(lambda: twalk.lattice_pass(targets, sp, n_src, tables, ng,
+                                            box, False), K3_REPS)
+    twin_ms = cuda_ms(lambda: twalk.lattice_pass_torch(
+        targets, sp, n_src, tables, ng, box, False), K3_TWIN_REPS)
+    bound = pairs * OPS_LATTICE / PEAK_FP32 * 1e3
+    nb = sp.shape[0]
+    print(f"K3 [{card}] {label}, largest launch: {nb} blocks of "
+          f"{targets['x'].shape[0] // nb} targets, S = {sp.shape[2]}, "
+          f"{pairs} valid pairs; kernel {ms:.3f} ms (median of {K3_REPS}), "
+          f"twin {twin_ms:.1f} ms, bound {bound:.4f} ms (operations), "
+          f"{100 * bound / ms:.2f}% of it; twin / kernel "
+          f"{twin_ms / ms:.0f}x", flush=True)
+    return {"ms": ms, "plain_ms": twin_ms, "bound_ms": bound,
+            "bound_by": "operations", "max_abs_err": worst,
+            "plan": {"lanes": k3_lanes(targets["x"].shape[0] // nb),
+                     "pairs": pairs}}
+
+
+def lattice_entry(label: str, launches: int, nums: dict) -> dict:
+    """K3's entry for the {"kernels": ...} line."""
+    return {"name": f"K3 lattice pass ({label})", "route": "cuda",
+            "source": "ngravs_tpu_torch/csrc/lattice.cu",
+            "replaces": "ngravs_tpu/ops/walk.py lattice pass (no Pallas "
+                        "kernel)",
+            "launches": launches, "max_abs_err": nums["max_abs_err"],
+            "ms": nums["ms"], "plain_ms": nums["plain_ms"],
+            "bound_ms": nums["bound_ms"], "bound_by": nums["bound_by"],
+            "library_ms": None, "plan": nums["plan"]}
 
 
 # --------------------------------------------------------------------------
@@ -4049,8 +4214,10 @@ def main(argv=None) -> int:
     pairwise.build_library(verbose=True)
     t2 = time.perf_counter()
     sph.build_library(verbose=True)
+    t3 = time.perf_counter()
+    lattice.build_k3(verbose=True)
     print(f"build: pair kernel {t2 - t1:.1f} s, SPH kernels "
-          f"{time.perf_counter() - t2:.1f} s; "
+          f"{t3 - t2:.1f} s, lattice kernel {time.perf_counter() - t3:.1f} s; "
           f"lattice-table generator "
           f"{'native' if native else 'numpy (no host compiler)'} "
           f"{t1 - t0:.1f} s", flush=True)
@@ -4139,6 +4306,7 @@ def main(argv=None) -> int:
     entries += dist_entries(dist)
     if want(13):
         entries += law_matrix(dev, card, path_counts)
+    entries += K3_ENTRIES
     # phase 14 ran inside each path, after its steps
     entries += PHASE14["entries"]
     for name, n in PHASE14["counts"].items():

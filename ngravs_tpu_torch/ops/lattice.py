@@ -18,7 +18,11 @@ as .npy files in `$NGRAVS_TORCH_TABLE_DIR`, by default
 made the tables of the last call that computed any.
 
 The lookup is the trilinear interpolation with octant sign folding of
-`lattice_corr` (forcetree.c:3803-3900), as torch ops.
+`lattice_corr` (forcetree.c:3803-3900), as torch ops.  On the card the
+walk's lattice pass is K3 (`csrc/lattice.cu`, `lattice_eval_cuda`), built
+with nvcc for sm_90a at first use into `build/` and loaded through ctypes
+as K1 is; each launch counts `k3.lattice` in the trace of the innermost
+open span.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ import tempfile
 
 import numpy as np
 import torch
+
+from ..trace import current as current_trace
 
 CACHE_DIR_ENV = "NGRAVS_TORCH_TABLE_DIR"
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -403,3 +409,105 @@ def lattice_correction(tables, fac_intp: float, dx, dy, dz, pair_idx,
         + (u * v * (1 - w))[..., None] * c[..., 6, :] \
         + (u * v * w)[..., None] * c[..., 7, :]
     return sx * f[..., 0], sy * f[..., 1], sz * f[..., 2], f[..., 3]
+
+
+# ---------------------------------------------------------------------------
+# K3: the walk's lattice pass on the card (csrc/lattice.cu)
+# ---------------------------------------------------------------------------
+
+_K3_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc", "lattice.cu")
+# every product and sum rounded on its own, as the twin's torch operations
+_K3_FLAGS = ("-fmad=false",)
+# the kernel's limits: targets a block, threads a CTA, lanes a target
+K3_MAX_GROUP, K3_MAX_THREADS, K3_MAX_LANES = 256, 256, 8
+_k3 = None
+
+
+def build_k3(verbose: bool = False) -> str:
+    """Build `csrc/lattice.cu` as K1 is built (`pairwise.build_library`,
+    cached by content hash); returns the library's path."""
+    from .pairwise import build_library
+    return build_library(verbose, src=_K3_SRC, flags=_K3_FLAGS)
+
+
+def _k3_library():
+    global _k3
+    if _k3 is None:
+        lib = ctypes.CDLL(build_k3())
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.ngravs_lattice.restype = i
+        lib.ngravs_lattice.argtypes = [p] * 8 + [i] * 6 + [f] * 3 + [p] * 3
+        _k3 = lib
+    return _k3
+
+
+def k3_lanes(group: int) -> int:
+    """Threads a target in K3's CTA of one target block: the most, up to
+    8, that keep the CTA within 256 threads.  Raises ValueError, before
+    any launch, for a group the kernel does not take."""
+    if not 0 < group <= K3_MAX_GROUP:
+        raise ValueError(f"K3 takes blocks of 1 to {K3_MAX_GROUP} targets, "
+                         f"not {group}")
+    lanes = K3_MAX_LANES
+    while group * lanes > K3_MAX_THREADS:
+        lanes //= 2
+    return lanes
+
+
+def lattice_eval_cuda(targets: dict, spacked: torch.Tensor,
+                      n_src: torch.Tensor, tables: torch.Tensor,
+                      n_gravs: int, box_size: float, want_pot: bool = True):
+    """K3: the walk's lattice pass (`walk.lattice_pass_torch`'s sums) in one
+    launch over every block of the batch.  targets: [B*G, 1] columns x, y,
+    z, grav, gid; spacked [B, 8, S] f32; n_src [B, 1] int32, read on the
+    card; tables [NG*NG, EN+1, EN+1, EN+1, 4] f32 (`build_lattice_tables`).
+    Returns (acc [B*G, 3], pot [B*G], zeros without `want_pot`).  Raises
+    ValueError off the card or on a shape or dtype the kernel does not
+    take."""
+    dev = spacked.device
+    if dev.type != "cuda":
+        raise ValueError(f"no lattice kernel for device {dev}")
+    if box_size <= 0:
+        raise ValueError("K3 corrects a periodic box only")
+    nb, rows, s = spacked.shape
+    bg = targets["x"].shape[0]
+    en = tables.shape[1] - 1
+    want = dict(spacked=(spacked, torch.float32, (nb, 8, s)),
+                n_src=(n_src, torch.int32, (nb,)),
+                tables=(tables, torch.float32,
+                        (n_gravs * n_gravs, en + 1, en + 1, en + 1, 4)),
+                **{k: (targets[k], torch.int32 if k in ("grav", "gid")
+                       else torch.float32, (bg,))
+                   for k in ("x", "y", "z", "grav", "gid")})
+    x = {}
+    for name, (t, dtype, shape) in want.items():
+        if t.dtype != dtype or t.device != dev \
+                or t.numel() != math.prod(shape) \
+                or (name in ("spacked", "tables") and tuple(t.shape) != shape):
+            raise ValueError(f"K3: {name} must be {list(shape)} {dtype} on "
+                             f"{dev}, got {list(t.shape)} {t.dtype} on "
+                             f"{t.device}")
+        x[name] = t.contiguous()
+    if nb == 0 or bg % nb:
+        raise ValueError(f"{bg} targets do not split into {nb} blocks")
+    group = bg // nb
+    lanes = k3_lanes(group)
+    acc = torch.empty(bg, 3, dtype=torch.float32, device=dev)
+    pot = (torch.empty if want_pot else torch.zeros)(
+        bg, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _k3_library().ngravs_lattice(
+            x["x"].data_ptr(), x["y"].data_ptr(), x["z"].data_ptr(),
+            x["grav"].data_ptr(), x["gid"].data_ptr(),
+            x["spacked"].data_ptr(), x["n_src"].data_ptr(),
+            x["tables"].data_ptr(), nb, group, s, lanes, n_gravs, en,
+            2 * en / box_size, box_size, 1.0 / box_size, acc.data_ptr(),
+            pot.data_ptr() if want_pot else None,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K3 launch failed: cudaError {err}")
+    tr = current_trace()
+    if tr is not None:
+        tr.count("k3.lattice")
+    return acc, pot

@@ -149,8 +149,9 @@ class GravitySolver:
         self.oracle_lattice_tables = None
         if cfg.periodic and (not cfg.pmgrid or cfg.force_test > 0):
             from .lattice import build_lattice_tables
-            tabs = build_lattice_tables(wiring, cfg.ngravs_en, cfg.box_size,
-                                        device=device)
+            with self.trace.span("lattice.tables"):
+                tabs = build_lattice_tables(wiring, cfg.ngravs_en,
+                                            cfg.box_size, device=device)
             self.oracle_lattice_tables = tabs
             if not cfg.pmgrid:
                 self.lattice_tables = tabs

@@ -40,7 +40,7 @@ import torch
 
 from ..models.wiring import GravityWiring
 from ..trace import Trace, blocking
-from .lattice import corner_table, lattice_correction
+from .lattice import corner_table, lattice_correction, lattice_eval_cuda
 from .pairwise import (FCOUNT, FMASS, FSOFT, FX, FY, FZ, IGID, IGRAV,
                        pairwise_eval)
 from .shortrange import longrange_force_factor, longrange_pot_factor
@@ -427,16 +427,32 @@ def tabulated_pair_eval(targets: dict, spacked: torch.Tensor,
 
 def lattice_pass(targets: dict, spacked: torch.Tensor, n_src: torch.Tensor,
                  tables: torch.Tensor, n_gravs: int, box_size: float,
-                 block_chunk: int | None = None, corners=None):
+                 want_pot: bool = True, corners=None):
     """The periodic pure-tree walk's lattice (Ewald) correction over the
-    same packed buffer and interaction set as the pair sums
-    (ngravs_tpu/ops/walk.py:969-1008; the reference's second walk,
-    forcetree.c:2077-2432): sources with gid -1 are dropped, nodes (gid
-    -2) kept, self pairs excluded; each pair adds source mass times the
-    trilinear lattice correction of its (target, source) gravity pair at
-    the minimum-image displacement.  `corners`: `lattice.corner_table(
-    tables)` when the caller keeps one.  Returns (acc [B*G, 3], pot
-    [B*G]), to be added to the pair sums."""
+    same packed buffer and interaction set as the pair sums: CUDA tensors
+    launch K3 (`lattice.lattice_eval_cuda`, one launch over the whole
+    batch, n_src read on the card), CPU tensors take the twin
+    `lattice_pass_torch` (`corners`: its `lattice.corner_table(tables)`
+    when the caller keeps one).  Returns (acc [B*G, 3], pot [B*G], zeros
+    without `want_pot`), to be added to the pair sums."""
+    if spacked.device.type == "cuda":
+        return lattice_eval_cuda(targets, spacked, n_src, tables, n_gravs,
+                                 box_size, want_pot)
+    return lattice_pass_torch(targets, spacked, n_src, tables, n_gravs,
+                              box_size, want_pot, corners=corners)
+
+
+def lattice_pass_torch(targets: dict, spacked: torch.Tensor,
+                       n_src: torch.Tensor, tables: torch.Tensor,
+                       n_gravs: int, box_size: float, want_pot: bool = True,
+                       corners=None):
+    """K3's plain twin (ngravs_tpu/ops/walk.py:969-1008; the reference's
+    second walk, forcetree.c:2077-2432): sources with gid -1 are dropped,
+    nodes (gid -2) kept, self pairs excluded; each pair adds source mass
+    times the trilinear lattice correction of its (target, source) gravity
+    pair at the minimum-image displacement.  Runs on the tensors' device
+    in chunks of target blocks.  `corners`: `lattice.corner_table(tables)`
+    when the caller keeps one."""
     nb, _, s = spacked.shape
     g = targets["x"].shape[0] // nb
     dev = spacked.device
@@ -445,7 +461,7 @@ def lattice_pass(targets: dict, spacked: torch.Tensor, n_src: torch.Tensor,
         corners = corner_table(tables)
     acc = torch.zeros(nb, g, 3, dtype=torch.float32, device=dev)
     pot = torch.zeros(nb, g, dtype=torch.float32, device=dev)
-    for sl in _block_chunks(nb, s, g, block_chunk):
+    for sl in _block_chunks(nb, s, g, None):
         sp = spacked[sl]
         col, valid, d = _pair_geometry(targets, sp, sl, n_src, g, box_size)
         pidx = col("grav") * n_gravs \
@@ -457,7 +473,8 @@ def lattice_pass(targets: dict, spacked: torch.Tensor, n_src: torch.Tensor,
         acc[sl] = torch.stack([torch.sum(torch.where(valid, sm * f, 0.0),
                                          dim=-1)
                                for f in (fcx, fcy, fcz)], dim=-1)
-        pot[sl] = torch.sum(torch.where(valid, sm * pc, 0.0), dim=-1)
+        if want_pot:
+            pot[sl] = torch.sum(torch.where(valid, sm * pc, 0.0), dim=-1)
     return acc.reshape(nb * g, 3), pot.reshape(nb * g)
 
 
@@ -499,8 +516,9 @@ def make_fused_walk(wiring: GravityWiring, n_gravs: int, *,
     tabulated pass) `walk.k1`, the lattice pass inside it `walk.lattice`.
 
     One host read per call, the number of active target blocks, and one a
-    batch for the torch passes (the lattice pass, the tabulated
-    evaluation): the length of the batch's longest source list."""
+    batch for the torch passes (the tabulated evaluation, the lattice
+    pass's twin off the card): the length of the batch's longest source
+    list."""
     if trace is None:
         trace = Trace()
     groups = wiring.unique_laws()
@@ -521,8 +539,10 @@ def make_fused_walk(wiring: GravityWiring, n_gravs: int, *,
                    accumulator=wiring.accumulator,
                    treepm_asmth=(float(treepm["asmth"])
                                  if treepm is not None else 0.0))
+    # the twin's corner table, built once a walk (K3 reads the tables)
     corners = corner_table(lattice_tables) \
-        if lattice_tables is not None else None
+        if lattice_tables is not None \
+        and lattice_tables.device.type != "cuda" else None
     if tabulated:
         tab_kw = dict(wiring=wiring, box_size=float(box_size),
                       sr_ftab=treepm["sr_ftab"], sr_ptab=treepm["sr_ptab"],
@@ -747,10 +767,12 @@ def make_fused_walk(wiring: GravityWiring, n_gravs: int, *,
                        fsoft=flat(tgt["fsoft"]), gid=flat(tgid))
         n_src = (torch.clamp(n_uch, max=CL) * 8).to(torch.int32).reshape(B, 1)
         with trace.span("walk.k1"):
-            if tabulated or lattice_tables is not None:
+            lbuf = ubuf
+            if tabulated or corners is not None:
                 # the torch passes read the batch's live rows only: the
                 # buffer cut at its longest list (one host read a batch;
-                # the JAX walk's loop also runs to the largest n_src)
+                # the JAX walk's loop also runs to the largest n_src); K3
+                # reads n_src on the card
                 live = max(8, -(-int(trace.read(torch.amax(n_src))) // 8)
                            * 8)
                 lbuf = ubuf[:, :, :live]
@@ -764,7 +786,8 @@ def make_fused_walk(wiring: GravityWiring, n_gravs: int, *,
                 with trace.span("walk.lattice"):
                     la, lp = lattice_pass(targets, lbuf, n_src,
                                           lattice_tables, NG,
-                                          float(box_size), corners=corners)
+                                          float(box_size), want_pot,
+                                          corners=corners)
                 a3 = a3 + la
                 if want_pot:
                     pp = pp + lp
